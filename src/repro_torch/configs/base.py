@@ -1,0 +1,133 @@
+"""Model configuration schema and the architecture registry.
+
+The port's own copy of the JAX package's ``configs/base.py``: the same
+fields with the same defaults, so a configuration reads the same on both
+sides.  ``reduced()`` gives the CPU-test variant of an architecture (same
+family and wiring, tiny dimensions).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+__all__ = ["ModelConfig", "register", "get_config", "list_configs"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    #: 'dense' | 'moe' | 'ssm' | 'hybrid' | 'encdec' | 'vlm'
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+
+    # MoE
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    router_aux_coef: float = 0.01
+    expert_capacity_factor: float = 1.25
+
+    # SSM (Mamba-1)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    ssm_dt_rank: int = 0              # 0 -> ceil(d_model / 16)
+
+    # Hybrid (Hymba-style) sliding-window attention; 0 -> full attention
+    sliding_window: int = 0
+
+    # Encoder-decoder (Whisper-style)
+    encoder_layers: int = 0
+    source_len: int = 0
+
+    # VLM stub frontend
+    num_patches: int = 0
+
+    # numerics / memory policy
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"
+    grad_accum_dtype: str = "float32"
+    remat: bool = True
+    scan_block: int = 0
+    ce_chunk: int = 256
+    #: decode KV-cache storage: 'bfloat16' or 'int8' (symmetric per-row scales).
+    kv_cache_dtype: str = "bfloat16"
+    grad_accum: int = 1
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def resolved_dt_rank(self) -> int:
+        return self.ssm_dt_rank or math.ceil(self.d_model / 16)
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def reduced(self) -> "ModelConfig":
+        """Same family/wiring, tiny dims — used by the CPU tests."""
+        h = min(self.num_heads, 4)
+        k = max(1, min(self.num_kv_heads, 2))
+        h = max(h, k)
+        h = (h // k) * k  # keep GQA divisibility
+        return self.replace(
+            num_layers=2,
+            d_model=64,
+            num_heads=h,
+            num_kv_heads=k,
+            head_dim=16,
+            d_ff=128,
+            vocab_size=256,
+            num_experts=min(self.num_experts, 4),
+            num_shared_experts=min(self.num_shared_experts, 1),
+            top_k=min(self.top_k, 2),
+            expert_capacity_factor=4.0,
+            ssm_state=min(self.ssm_state, 8),
+            ssm_dt_rank=4 if self.family in ("ssm", "hybrid") else 0,
+            sliding_window=min(self.sliding_window, 32) if self.sliding_window else 0,
+            encoder_layers=2 if self.encoder_layers else 0,
+            source_len=16 if self.source_len else 0,
+            num_patches=8 if self.num_patches else 0,
+            param_dtype="float32",
+            compute_dtype="float32",
+            grad_accum=1,
+        )
+
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_config(name: str) -> ModelConfig:
+    import repro_torch.configs  # noqa: F401  (importing the package registers)
+
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}") from None
+
+
+def list_configs() -> list[str]:
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,0 +1,74 @@
+"""Batched serving engine: prefill + decode loop over the KV cache.
+
+The static-batch engine of the JAX package's ``serve/engine.py`` for the
+decoder-only dense family.  Feeding prompts from the data tier
+(``generate_from_tier``) waits for a port of ``serve/datatier.py``
+(ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.models.lm import CacheSpec
+
+__all__ = ["ServeEngine"]
+
+
+class ServeEngine:
+    """``attn_impl`` selects the prefill attention ('pallas' is the
+    hand-written flash kernel on the card).  ``device`` defaults to the card
+    and raises without one; pass ``device='cpu'`` to run on the CPU."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_len: int,
+                 attn_impl: str = "auto", device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.spec = CacheSpec.build(cfg, max_len)
+        self.attn_impl = attn_impl
+        self.params = _to_device(params, self.device)
+
+    @torch.inference_mode()
+    def prefill(self, prompts):
+        """prompts [B, S] -> (f32 logits [B, V] at the last position, cache)."""
+        tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
+                                 device=self.device)
+        return lm.prefill(self.params, tokens, self.cfg, self.spec,
+                          attn_impl=self.attn_impl)
+
+    @torch.inference_mode()
+    def step(self, cache, tokens):
+        """One decode step for tokens [B] on the device; updates ``cache``."""
+        return lm.decode_step(self.params, cache, tokens, self.cfg, self.spec)
+
+    @torch.inference_mode()
+    def generate(self, prompts, num_tokens: int, *, greedy: bool = True,
+                 generator: torch.Generator | None = None) -> np.ndarray:
+        """prompts [B, S_prompt] int -> generated tokens [B, num_tokens].
+
+        Sampling (``greedy=False``) draws from softmax(logits) with
+        ``generator`` (a ``torch.Generator`` on the engine's device; seeded
+        with 0 when omitted)."""
+        if not greedy and generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0)
+        logits, cache = self.prefill(prompts)
+        tok = torch.argmax(logits, dim=-1)
+        out = []
+        for _ in range(num_tokens):
+            out.append(tok)
+            logits, cache = self.step(cache, tok)
+            if greedy:
+                tok = torch.argmax(logits, dim=-1)
+            else:
+                probs = torch.softmax(logits, dim=-1)
+                tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
+        return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
