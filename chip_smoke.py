@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases, each of which must pass:
-  1. build   — compile every hand-written kernel from ``src/repro_torch/
-               kernels/csrc`` with nvcc (all sources at once);
+  1. build   — compile the hand-written kernel from ``src/repro_torch/
+               kernels/csrc`` with nvcc;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the shape sweep of ``tests/test_kernels.py`` in f32 and
                bf16, plus the shape the serving path gives it;
@@ -14,11 +14,14 @@ Phases, each of which must pass:
   4. serve   — qwen2-0.5b at full width in bf16, random weights from a seed:
                ``ServeEngine(attn_impl="pallas").generate`` for 4 prompts of
                512 tokens and 32 new tokens; the kernel must be launched once
-               per layer per prefill, tokens must repeat, and the prefill
-               logits must agree with ``attn_impl="ref"``;
+               per layer per prefill, tokens must repeat, the prefill
+               logits must agree with ``attn_impl="ref"`` while planted
+               attention faults must not, and the default ``"auto"`` must
+               take the kernel too;
   5. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
-               medians at the serving shape), the card's name and power
-               limit, and last the ``{"ok": true, "device": ...}`` line.
+               medians of CUDA-graph replays at the serving shape), the
+               card's name and power limit, and last the
+               ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero and prints no result when there is no card or a phase fails.
 Imports nothing of JAX and nothing of the JAX package.
@@ -62,9 +65,10 @@ SERVE_SHAPE = (BATCH, 14, 2, PROMPT, PROMPT, 64, True, 0)
 # in bf16.  The two attention outputs differ only by f32 summation order
 # before the cast to bf16, so some elements land one bf16 ulp apart (<0.4%);
 # 24 residual layers carry that to the logits, whose values are O(1) (std ~1
-# at this init).  0.1 absolute leaves room for that drift and none for a
-# wrong mask, scale or head mapping, which move logits by O(1).
-LOGIT_ATOL = 0.1
+# at this init).  On an H100 the correct kernel reads 0.075 and the planted
+# faults of ``planted_fault_diffs`` read 4.3-6.9; the limit sits between,
+# near their geometric mean.
+LOGIT_ATOL = 0.5
 # Small f32 check, card kernel vs CPU plain version: a few f32 ulps per op.
 SMALL_TOL = 1e-4
 
@@ -81,8 +85,9 @@ def gpu_name_and_limit() -> str:
 
 
 def cuda_ms(fn, *, iters: int = 20, repeats: int = 7, warmup: int = 3) -> float:
-    """Median over ``repeats`` of CUDA-event time per call, ``iters`` calls
-    between two events, after ``warmup`` calls."""
+    """Median over ``repeats`` of CUDA-event time per call, ``iters`` eager
+    calls between two events, after ``warmup`` calls.  Where a call's device
+    time is near its host cost this reads the host's launch rate."""
     for _ in range(warmup):
         fn()
     times = []
@@ -95,6 +100,34 @@ def cuda_ms(fn, *, iters: int = 20, repeats: int = 7, warmup: int = 3) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def graph_ms(fn, *, iters: int = 20, repeats: int = 7, warmup: int = 3) -> float:
+    """Median over ``repeats`` of device time per call: ``iters`` calls of
+    ``fn`` captured in one CUDA graph and replayed between two CUDA events,
+    so the host's launch rate stays out of the reading."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
     return statistics.median(times)
 
 
@@ -137,8 +170,7 @@ def device_time(run, wall_ms: float, calls: int) -> dict:
     events = [e for e in run().key_averages() if e.device_type == DeviceType.CUDA]
 
     def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(
-            e, "self_cuda_time_total", 0)
+        return e.self_device_time_total
 
     total_ms = sum(dev_us(e) for e in events) / 1e3 / calls
     top = sorted(events, key=dev_us, reverse=True)[:5]
@@ -181,12 +213,11 @@ def phase_build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    libs = _build.build()
-    log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s")
-    for name, lib in libs.items():
-        report = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-                  if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {lib.name}; ptxas: " + " | ".join(report))
+    lib = _build.build()
+    log(f"[build] {lib.name} in {time.perf_counter() - t0:.1f}s")
+    report = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
+              if "registers" in ln or "spill" in ln]
+    log("[build] ptxas: " + " | ".join(report))
 
 
 def phase_kernels():
@@ -234,6 +265,37 @@ def phase_small():
         f"(tol {SMALL_TOL:g}); greedy tokens equal: {np.array_equal(toks, want_toks)}")
     if not err <= SMALL_TOL or not np.array_equal(toks, want_toks):
         raise AssertionError("reduced model on the card disagrees with the CPU")
+
+
+def planted_fault_diffs(eng, prompts, ref_logits) -> dict:
+    """Max abs prefill-logit difference from ``ref_logits`` when the kernel is
+    fed a planted fault: no causal mask, scale 1/hd instead of 1/sqrt(hd),
+    or each query head reading the other group's kv head.  The negative
+    control of ``LOGIT_ATOL``."""
+    from repro_torch.kernels import ops
+
+    real = ops.flash_attention
+
+    def faulty(fault):
+        def attend(q, k, v, *, causal=True, window=0, **kw):
+            if fault == "no_causal_mask":
+                causal = False
+            elif fault == "scale_1/hd":
+                q = (q.float() / math.sqrt(q.shape[-1])).to(q.dtype)
+            else:
+                k, v = k.roll(1, dims=1).contiguous(), v.roll(1, dims=1).contiguous()
+            return real(q, k, v, causal=causal, window=window, **kw)
+        return attend
+
+    diffs = {}
+    try:
+        for fault in ("no_causal_mask", "scale_1/hd", "wrong_kv_head"):
+            ops.flash_attention = faulty(fault)
+            got, _ = eng.prefill(prompts)
+            diffs[fault] = (got - ref_logits).abs().max().item()
+    finally:
+        ops.flash_attention = real
+    return diffs
 
 
 def phase_serve():
@@ -288,6 +350,19 @@ def phase_serve():
         f"greedy token agreement {agree:.3f}")
     if not torch.isfinite(logits).all() or not diff <= LOGIT_ATOL:
         raise AssertionError("prefill logits disagree with attn_impl='ref'")
+    fault_diffs = planted_fault_diffs(eng, prompts, ref_logits)
+    log(f"[serve] planted faults, prefill logits vs ref: max_abs_diff {fault_diffs} "
+        f"(each must exceed tol {LOGIT_ATOL})")
+    if not all(d > LOGIT_ATOL for d in fault_diffs.values()):
+        raise AssertionError("the logit tolerance does not catch a planted fault")
+
+    # The engine's default attn_impl ("auto") takes the kernel on the card.
+    auto_eng = ServeEngine(cfg, eng.params, max_len=max_len, device="cuda")
+    fa.launches = 0
+    auto_logits, _ = auto_eng.prefill(prompts)
+    log(f"[serve] attn_impl='auto' prefill: flash_attention launches {fa.launches}")
+    if fa.launches != cfg.num_layers or not torch.equal(auto_logits, logits):
+        raise AssertionError("attn_impl='auto' does not run the kernel on the card")
 
     prefill_ms = host_ms(lambda: eng.prefill(prompts))
     ref_prefill_ms = host_ms(lambda: ref_eng.prefill(prompts))
@@ -343,10 +418,19 @@ def phase_report(launches: int, worst: dict) -> dict:
 
     q, k, v = attention_inputs(SERVE_SHAPE, torch.bfloat16)
     causal, window = SERVE_SHAPE[6], SERVE_SHAPE[7]
-    kernel_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal, window=window))
-    plain_ms = cuda_ms(lambda: ref.attention_ref(q, k, v, causal=causal, window=window))
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=True))
+    calls = {
+        "kernel": lambda: fa.flash_attention(q, k, v, causal=causal, window=window),
+        "plain": lambda: ref.attention_ref(q, k, v, causal=causal, window=window),
+        "library": lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True),
+    }
+    # Reported: device time from CUDA-graph replays.  Logged beside it: the
+    # same calls issued eagerly, which the host's launch rate can bound.
+    graph = {name: graph_ms(fn) for name, fn in calls.items()}
+    eager = {name: cuda_ms(fn) for name, fn in calls.items()}
+    log(f"[report] flash_attention serving shape, ms per call: graph {graph}; "
+        f"eager {eager}")
+    kernel_ms, plain_ms, library_ms = graph["kernel"], graph["plain"], graph["library"]
     bound_ms, bound_by = attention_bound(q, k, causal, window)
     return {
         "name": "flash_attention",

@@ -1,10 +1,10 @@
-"""Build the hand-written CUDA kernels with nvcc into shared libraries.
+"""Build the hand-written CUDA kernel with nvcc into a shared library.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface, compiled
+The kernel is ``csrc/flash_attention.cu`` with a plain C interface, compiled
 for ``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the root
 of the checkout (listed in ``.gitignore``).  The library's file name carries
 a hash of its source and flags, so a stale library is never loaded.  The
-wrappers load the result with ``ctypes``.
+wrapper loads the result with ``ctypes``.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -17,11 +17,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["KERNELS", "BUILD_DIR", "library_path", "build"]
+__all__ = ["SOURCE", "BUILD_DIR", "library_path", "build"]
 
-CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-KERNELS = ("flash_attention",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,47 +38,29 @@ def _nvcc() -> str:
     return on_path
 
 
-def _source(name: str) -> Path:
-    if name not in KERNELS:
-        raise ValueError(f"unknown kernel {name!r}; have {KERNELS}")
-    return CSRC / f"{name}.cu"
-
-
-def library_path(name: str) -> Path:
+def library_path() -> Path:
     """Where the library built from the current source lives."""
-    h = hashlib.sha256(_source(name).read_bytes())
+    h = hashlib.sha256(SOURCE.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
 
 
-def build(*names: str) -> dict[str, Path]:
-    """Build the named kernels (all of them by default), one nvcc process per
-    source, all started together.  Returns ``{name: library path}``; a
-    library already built from the same source is reused.  The compiler's
-    report (registers, shared memory, spills) is kept beside each library
-    as ``.log``.  Raises with the compiler's output if a build fails."""
-    names = names or KERNELS
+def build() -> Path:
+    """Build the kernel's library unless one built from the same source
+    exists, and return its path.  The compiler's report (registers, shared
+    memory, spills) is kept beside it as ``.log``.  Raises with the
+    compiler's output if the build fails."""
+    lib = library_path()
+    if lib.exists():
+        return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = {name: library_path(name) for name in names}
-    running = {}
-    for name, lib in out.items():
-        if lib.exists():
-            continue
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp)
-    failed = []
-    for name, (proc, tmp) in running.items():
-        log, _ = proc.communicate()
-        lib = out[name]
-        lib.with_suffix(".log").write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
-    return out
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lib.with_suffix(".log").write_text(res.stdout)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"kernel build failed (nvcc exit {res.returncode}):\n"
+                           f"{res.stdout}")
+    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    return lib

@@ -15,11 +15,11 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "launches", "HEAD_DIMS"]
+__all__ = ["flash_attention", "launches", "HEAD_DIMS", "DTYPES"]
 
-#: Head dims the kernel is instantiated for (a template parameter).
+#: Head dims and dtypes the kernel is instantiated for (template parameters).
 HEAD_DIMS = (16, 32, 64, 128)
-_DTYPES = (torch.float32, torch.bfloat16)
+DTYPES = (torch.float32, torch.bfloat16)
 
 #: Kernel launches since import (or since a caller last set it to 0).
 launches = 0
@@ -30,7 +30,7 @@ _fn = None
 def _kernel():
     global _fn
     if _fn is None:
-        lib = ctypes.CDLL(str(_build.build("flash_attention")["flash_attention"]))
+        lib = ctypes.CDLL(str(_build.build()))
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -54,8 +54,8 @@ def _check(q, k, v, window):
             raise ValueError(f"{name} must be contiguous")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"dtype {q.dtype} not in {_DTYPES}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"dtype {q.dtype} not in {DTYPES}")
     b, h, sq, hd = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != hd:
         raise ValueError(f"k {tuple(k.shape)} / v {tuple(v.shape)} do not fit "

@@ -19,7 +19,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.ref import NEG_INF
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import ops
+from repro_torch.kernels.ref import NEG_INF, attention_ref
 
 __all__ = [
     "rms_norm",
@@ -80,23 +82,6 @@ def _mask_bias(qpos, kpos, causal: bool, window: int):
     return torch.where(ok, zero, NEG_INF)
 
 
-def attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                  qpos=None, kpos=None):
-    """Reference softmax attention. q [B,H,Sq,hd], k/v [B,K,Sk,hd]."""
-    h, sq, hd = q.shape[1], q.shape[2], q.shape[3]
-    kh = k.shape[1]
-    kk = repeat_kv(k, h // kh).float()
-    vv = repeat_kv(v, h // kh).float()
-    scores = torch.einsum("bhsd,bhtd->bhst", q.float(), kk) / math.sqrt(hd)
-    if qpos is None:
-        qpos = torch.arange(sq, device=q.device)
-    if kpos is None:
-        kpos = torch.arange(k.shape[2], device=q.device)
-    scores = scores + _mask_bias(qpos, kpos, causal, window)
-    probs = torch.softmax(scores, dim=-1)
-    return torch.einsum("bhst,bhtd->bhsd", probs, vv).to(q.dtype)
-
-
 def attention_blockwise(q, k, v, *, causal: bool = True, window: int = 0,
                         block_size: int = 512):
     """Online-softmax attention over KV blocks — O(Sq * block) memory."""
@@ -131,18 +116,25 @@ def attention_blockwise(q, k, v, *, causal: bool = True, window: int = 0,
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
+def _flash_takes(q, k, v) -> bool:
+    """Whether the flash kernel is built for these inputs: CUDA, a dtype and
+    head dim it is instantiated for, contiguous."""
+    return (q.is_cuda and q.dtype in _fa.DTYPES and q.shape[-1] in _fa.HEAD_DIMS
+            and all(t.is_contiguous() for t in (q, k, v)))
+
+
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               impl: str = "auto", block_size: int = 512):
     """Dispatching attention entry point.
 
     impl: 'ref' | 'blockwise' | 'pallas' | 'auto'.  'pallas' is the selector
     of the hand-written flash-attention kernel (the name carries over from
-    the JAX package).  'auto' takes ref up to 2048 positions, else blockwise.
-    The banded 'local' path of sliding windows waits for the hybrid family.
+    the JAX package).  'auto' takes the kernel for CUDA inputs it is built
+    for; otherwise, as in the JAX package, ref up to 2048 positions, else
+    blockwise.  The banded 'local' path of sliding windows waits for the
+    hybrid family.
     """
-    if impl == "pallas":
-        from repro_torch.kernels import ops
-
+    if impl == "pallas" or (impl == "auto" and _flash_takes(q, k, v)):
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     s = q.shape[2]
     if impl == "local" or (

@@ -55,6 +55,18 @@ def test_kernel_matches_plain_version(cuda, b, h, kh, sq, sk, hd, causal,
                                atol=tol, rtol=tol)
 
 
+def test_auto_attention_takes_the_kernel_on_the_card(cuda):
+    from repro_torch.models import layers
+
+    q, k, v = _inputs(2, 4, 2, 64, 64, 64, torch.bfloat16, cuda)
+    before = fa.launches
+    out = layers.attention(q, k, v, causal=True, impl="auto")
+    assert fa.launches == before + 1
+    want = ref.attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _inputs(1, 4, 2, 16, 16, 32, torch.float32, cuda)
     with pytest.raises(ValueError, match="contiguous"):

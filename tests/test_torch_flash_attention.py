@@ -13,6 +13,10 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 
+# Files run in parallel worker processes: one intra-op thread keeps torch's
+# thread pool from starving timing-sensitive tests in the other workers.
+torch.set_num_threads(1)
+
 CASES = [
     (2, 4, 2, 64, 64, 32, True, 0),       # GQA causal
     (1, 4, 4, 128, 128, 64, True, 0),     # MHA

@@ -6,7 +6,12 @@ import pytest
 import torch
 
 from repro.models import layers as JL
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.models import layers as L
+
+# Files run in parallel worker processes: one intra-op thread keeps torch's
+# thread pool from starving timing-sensitive tests in the other workers.
+torch.set_num_threads(1)
 
 TOL = 1e-5
 
@@ -46,6 +51,15 @@ def test_attention(impl, causal, window, sq, sk):
         kw.pop("block_size")
     _close(L.attention(*map(torch.from_numpy, (q, k, v)), **kw),
            JL.attention(*map(jnp.asarray, (q, k, v)), **kw))
+
+
+@pytest.mark.parametrize("causal,sq,sk", [(True, 48, 48), (False, 40, 72)])
+def test_attention_auto_on_cpu_runs_the_plain_version(causal, sq, sk):
+    q, k, v = _np(4, 2, 4, sq, 16), _np(5, 2, 2, sk, 16), _np(6, 2, 2, sk, 16)
+    before = fa.launches
+    _close(L.attention(*map(torch.from_numpy, (q, k, v)), causal=causal, impl="auto"),
+           JL.attention(*map(jnp.asarray, (q, k, v)), causal=causal, impl="auto"))
+    assert fa.launches == before
 
 
 def test_attention_local_waits_for_the_hybrid_family():

@@ -21,6 +21,10 @@ from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.models import lm
 from repro_torch.serve.engine import ServeEngine
 
+# Files run in parallel worker processes: one intra-op thread keeps torch's
+# thread pool from starving timing-sensitive tests in the other workers.
+torch.set_num_threads(1)
+
 ARCH = "qwen2-0.5b"
 B, S, GEN = 3, 12, 8
 MAX_LEN = S + GEN + 1
