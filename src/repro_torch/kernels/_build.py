@@ -1,10 +1,11 @@
-"""Build the hand-written CUDA kernel with nvcc into a shared library.
+"""Build the hand-written CUDA kernels with nvcc into shared libraries.
 
-The kernel is ``csrc/flash_attention.cu`` with a plain C interface, compiled
-for ``sm_90a`` at first use into ``build/repro_torch_kernels/`` at the root
-of the checkout (listed in ``.gitignore``).  The library's file name carries
-a hash of its source and flags, so a stale library is never loaded.  The
-wrapper loads the result with ``ctypes``.
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
+``sm_90a`` at first use into its own library under
+``build/repro_torch_kernels/`` at the root of the checkout (listed in
+``.gitignore``).  A library's file name carries a hash of its source and
+flags, so a stale library is never loaded.  The wrappers load the results
+with ``ctypes``.  ``build_all`` starts one nvcc per source at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -17,9 +18,9 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["SOURCE", "BUILD_DIR", "library_path", "build"]
+__all__ = ["CSRC", "BUILD_DIR", "names", "library_path", "build", "build_all"]
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,29 +39,51 @@ def _nvcc() -> str:
     return on_path
 
 
-def library_path() -> Path:
-    """Where the library built from the current source lives."""
-    h = hashlib.sha256(SOURCE.read_bytes())
+def names() -> list[str]:
+    """Every kernel source under ``csrc/``, by stem."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from the current ``csrc/<name>.cu`` lives."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{SOURCE.stem}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Build the kernel's library unless one built from the same source
-    exists, and return its path.  The compiler's report (registers, shared
-    memory, spills) is kept beside it as ``.log``.  Raises with the
-    compiler's output if the build fails."""
-    lib = library_path()
-    if lib.exists():
-        return lib
+def build_all(kernels: list[str] | None = None) -> dict[str, Path]:
+    """Build each named kernel (default: all) unless a library built from the
+    same source exists, one nvcc per source, all started together.  Returns
+    ``{name: library path}``.  Each compiler report (registers, shared
+    memory, spills) is kept beside its library as ``.log``.  Raises with the
+    compiler's output if a build fails."""
+    kernels = names() if kernels is None else kernels
+    libs = {name: library_path(name) for name in kernels}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    lib.with_suffix(".log").write_text(res.stdout)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"kernel build failed (nvcc exit {res.returncode}):\n"
-                           f"{res.stdout}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    running = {}
+    for name, lib in libs.items():
+        if lib.exists():
+            continue
+        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in running.items():
+        report, _ = proc.communicate()
+        lib = libs[name]
+        lib.with_suffix(".log").write_text(report)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name} (nvcc exit {proc.returncode}):\n{report}")
+        else:
+            os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+    if failed:
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+    return libs
+
+
+def build(name: str) -> Path:
+    """Build one kernel's library (see ``build_all``) and return its path."""
+    return build_all([name])[name]

@@ -30,7 +30,7 @@ _fn = None
 def _kernel():
     global _fn
     if _fn is None:
-        lib = ctypes.CDLL(str(_build.build()))
+        lib = ctypes.CDLL(str(_build.build("flash_attention")))
         fn = lib.flash_attention_fwd
         fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])

@@ -10,7 +10,7 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "attention_ref"]
+__all__ = ["NEG_INF", "attention_ref", "selective_scan_ref", "rms_norm_ref"]
 
 #: Finite mask value, as in the JAX kernels: ``-inf`` would turn
 #: ``exp(m_prev - m_new)`` on a still fully masked tile into NaN.
@@ -36,3 +36,31 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int = 0):
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhst,bhtd->bhsd", p, vf).to(q.dtype)
+
+
+def selective_scan_ref(u, dt, a, b_ssm, c_ssm, d_skip):
+    """Sequential Mamba-1 recurrence from h=0, f32 throughout:
+    ``h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t``, ``y_t = C_t . h_t + D u_t``.
+
+    u, dt [B, S, DI]; a [DI, N]; b/c [B, S, N]; d_skip [DI].
+    Returns (y [B, S, DI] f32, h_last [B, DI, N] f32)."""
+    bsz, s, di = u.shape
+    n = a.shape[1]
+    uf, dtf = u.float(), dt.float()
+    af, bf, cf = a.float(), b_ssm.float(), c_ssm.float()
+    df = d_skip.float()
+    h = torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+    ys = []
+    for t in range(s):
+        decay = torch.exp(dtf[:, t, :, None] * af)                  # [B, DI, N]
+        h = decay * h + (dtf[:, t] * uf[:, t])[:, :, None] * bf[:, t, None, :]
+        ys.append(torch.einsum("bdn,bn->bd", h, cf[:, t]) + df * uf[:, t])
+    y = torch.stack(ys, dim=1) if ys else torch.zeros_like(uf)
+    return y, h
+
+
+def rms_norm_ref(x, scale, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32, cast to x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)

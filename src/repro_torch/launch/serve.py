@@ -3,6 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
         --attn-impl pallas [--reduced] [--batch 4 --prompt-len 16 --gen 32] \
         [--kv-int8] [--device cuda|cpu]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \
+        --attn-impl pallas --ssm-impl pallas --norm-impl pallas
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+        --ssm-impl pallas --norm-impl pallas
 
 Weights are random, from seed 0; prompts are random tokens from seed 0.
 Runs on the card unless ``--device cpu`` is given.
@@ -32,6 +36,10 @@ def main(argv=None):
     ap.add_argument("--attn-impl", default="auto",
                     choices=("auto", "ref", "blockwise", "pallas"),
                     help="prefill attention; 'pallas' is the CUDA flash kernel")
+    ap.add_argument("--ssm-impl", default="auto", choices=("auto", "ref", "pallas"),
+                    help="prefill selective scan; 'pallas' is the CUDA scan kernel")
+    ap.add_argument("--norm-impl", default="auto", choices=("auto", "ref", "pallas"),
+                    help="every RMSNorm; 'pallas' is the CUDA RMSNorm kernel")
     ap.add_argument("--device", default=None, help="default: cuda")
     args = ap.parse_args(argv)
 
@@ -44,7 +52,8 @@ def main(argv=None):
 
     params = lm.init_lm(cfg, seed=0, device=device)
     engine = ServeEngine(cfg, params, max_len=args.prompt_len + args.gen + 1,
-                         attn_impl=args.attn_impl, device=device)
+                         attn_impl=args.attn_impl, ssm_impl=args.ssm_impl,
+                         norm_impl=args.norm_impl, device=device)
     prompts = np.random.default_rng(0).integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)
 
@@ -53,7 +62,8 @@ def main(argv=None):
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"generated {out.shape} in {dt:.2f}s "
-          f"({out.size / dt:.1f} tok/s on {where}, attn_impl={args.attn_impl})")
+          f"({out.size / dt:.1f} tok/s on {where}, attn_impl={args.attn_impl}, "
+          f"ssm_impl={args.ssm_impl}, norm_impl={args.norm_impl})")
     print("first sequence:", out[0][:16].tolist())
 
 

@@ -1,16 +1,22 @@
-"""Model building blocks on tensors: the dense-decoder subset of the JAX
-package's ``models/layers.py``.
+"""Model building blocks on tensors: the serving subset of the JAX package's
+``models/layers.py`` (dense, sliding-window and Mamba-1 blocks).
 
 Conventions follow the JAX package: activations ``x [B, S, D]``; attention
 internals head-major ``q [B, H, S, hd]``, ``k/v [B, K, S, hd]`` (GQA: K
-divides H).  Every function returns its input's dtype; softmax and norms run
-in f32.  Where the JAX code asks for f32 accumulation of low-precision
-operands (``preferred_element_type``), the operands are widened to f32.
+divides H).  Every function returns its input's dtype; softmax, norms and
+the SSM scan run in f32.  Where the JAX code asks for f32 accumulation of
+low-precision operands (``preferred_element_type``), the operands are
+widened to f32.
+
+``rms_norm``, ``attention`` and ``_selective_scan`` take an ``impl``
+switch.  'pallas' selects the hand-written CUDA kernel (the name carries
+over from the JAX package); 'auto' takes the kernel for CUDA inputs, which
+raises on an input it does not take, and the JAX package's plain choice for
+CPU inputs.
 
 Not ported yet (ROADMAP.md Queue 1): ``rms_norm``'s custom backward,
-``layer_norm``, sinusoidal positions, ``attention_local``, ``gelu_mlp``,
-``moe_layer`` and the Mamba block.  ``constrain`` has no counterpart: one
-card has no mesh to constrain to.
+``layer_norm``, sinusoidal positions, ``gelu_mlp`` and ``moe_layer``.
+``constrain`` has no counterpart: one card has no mesh to constrain to.
 """
 from __future__ import annotations
 
@@ -19,9 +25,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF, attention_ref
+from repro_torch.kernels.ref import NEG_INF, attention_ref, rms_norm_ref
 
 __all__ = [
     "rms_norm",
@@ -29,19 +34,24 @@ __all__ = [
     "repeat_kv",
     "attention_ref",
     "attention_blockwise",
+    "attention_local",
     "attention",
     "quantize_kv",
     "decode_attention",
     "swiglu_mlp",
+    "mamba_block",
+    "mamba_decode_step",
 ]
 
 
-def rms_norm(x, scale, eps: float = 1e-6):
+def rms_norm(x, scale, eps: float = 1e-6, *, impl: str = "auto"):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32, cast to x's dtype.
-    Forward only."""
-    xf = x.float()
-    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return ((xf * r) * (1.0 + scale.float())).to(x.dtype)
+    Forward only.  impl: 'ref' | 'pallas' | 'auto' (see the module doc)."""
+    if impl == "pallas" or (impl == "auto" and x.is_cuda):
+        return ops.rms_norm(x, scale, eps=eps)
+    if impl not in ("ref", "auto"):
+        raise ValueError(f"unknown rms_norm impl {impl!r}")
+    return rms_norm_ref(x, scale, eps)
 
 
 def apply_rope(x, positions, theta: float = 1e4):
@@ -116,33 +126,56 @@ def attention_blockwise(q, k, v, *, causal: bool = True, window: int = 0,
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
-def _flash_takes(q, k, v) -> bool:
-    """Whether the flash kernel is built for these inputs: CUDA, a dtype and
-    head dim it is instantiated for, contiguous."""
-    return (q.is_cuda and q.dtype in _fa.DTYPES and q.shape[-1] in _fa.HEAD_DIMS
-            and all(t.is_contiguous() for t in (q, k, v)))
+def attention_local(q, k, v, *, window: int):
+    """Banded causal attention for sliding windows: O(S * 2W) instead of
+    O(S^2).  Each query chunk of size W attends to its own and the previous
+    key chunk: every in-window key is covered, everything else is masked.
+    Requires self-attention (Sq == Sk) with S % W == 0."""
+    b, h, s, hd = q.shape
+    kh = k.shape[1]
+    k = repeat_kv(k, h // kh)
+    v = repeat_kv(v, h // kh)
+    w = window
+    nc = s // w
+    qc = (q.float() / math.sqrt(hd)).to(q.dtype).reshape(b, h, nc, w, hd)
+    kc = k.reshape(b, h, nc, w, hd)
+    vc = v.reshape(b, h, nc, w, hd)
+    # previous chunk (zeros before chunk 0, masked out anyway)
+    kp = F.pad(kc, (0, 0, 0, 0, 1, 0))[:, :, :-1]
+    vp = F.pad(vc, (0, 0, 0, 0, 1, 0))[:, :, :-1]
+    k2 = torch.cat([kp, kc], dim=3)                 # [.., nc, 2W, hd]
+    v2 = torch.cat([vp, vc], dim=3)
+    qpos = torch.arange(w, device=q.device)[:, None]           # within chunk
+    krel = torch.arange(2 * w, device=q.device)[None, :] - w   # rel. to chunk start
+    band = (krel <= qpos) & (qpos - krel < w)
+    outs = []
+    for j in range(nc):  # live score tensor is [B, H, W, 2W]
+        scores = torch.einsum("bhqd,bhkd->bhqk", qc[:, :, j].float(),
+                              k2[:, :, j].float())
+        ok = band if j > 0 else band & (krel >= 0)  # chunk 0 has no predecessor
+        p = torch.softmax(torch.where(ok, scores, NEG_INF), dim=-1)
+        outs.append(torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(),
+                                 v2[:, :, j].float()))
+    return torch.stack(outs, dim=2).reshape(b, h, s, hd).to(q.dtype)
 
 
 def attention(q, k, v, *, causal: bool = True, window: int = 0,
               impl: str = "auto", block_size: int = 512):
     """Dispatching attention entry point.
 
-    impl: 'ref' | 'blockwise' | 'pallas' | 'auto'.  'pallas' is the selector
-    of the hand-written flash-attention kernel (the name carries over from
-    the JAX package).  'auto' takes the kernel for CUDA inputs it is built
-    for; otherwise, as in the JAX package, ref up to 2048 positions, else
-    blockwise.  The banded 'local' path of sliding windows waits for the
-    hybrid family.
+    impl: 'ref' | 'blockwise' | 'local' | 'pallas' | 'auto'.  'pallas' is
+    the hand-written flash-attention kernel.  'auto' takes the kernel for
+    CUDA inputs; for CPU inputs, as in the JAX package, the banded local path
+    for sliding windows, ref up to 2048 positions, else blockwise.
     """
-    if impl == "pallas" or (impl == "auto" and _flash_takes(q, k, v)):
+    if impl == "pallas" or (impl == "auto" and q.is_cuda):
         return ops.flash_attention(q, k, v, causal=causal, window=window)
     s = q.shape[2]
     if impl == "local" or (
         impl == "auto" and causal and window > 0 and s == k.shape[2]
         and s % window == 0 and s >= 2 * window
     ):
-        raise NotImplementedError(
-            "attention_local is not ported yet (ROADMAP.md Queue 1: hybrid family)")
+        return attention_local(q, k, v, window=window)
     if impl == "ref" or (impl == "auto" and s <= 2048):
         return attention_ref(q, k, v, causal=causal, window=window)
     if impl not in ("blockwise", "auto"):
@@ -189,3 +222,110 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, k_scale=None,
 
 def swiglu_mlp(x, wi_gate, wi_up, wo):
     return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+# ---------------------------------------------------------------------------
+# Mamba-1 block (selective scan)
+# ---------------------------------------------------------------------------
+
+
+def _prefix_scan(decay, inp):
+    """Inclusive scan over dim 1 of the pairs (decay, inp) under
+    ``(a1, b1) . (a2, b2) = (a1 a2, b2 + a2 b1)``: ceil(log2 Q) passes, each
+    combining every element with the one ``off`` steps before it."""
+    q = decay.shape[1]
+    off = 1
+    while off < q:
+        a_prev, b_prev = decay[:, :-off], inp[:, :-off]
+        inp = torch.cat([inp[:, :off], inp[:, off:] + decay[:, off:] * b_prev], dim=1)
+        decay = torch.cat([decay[:, :off], decay[:, off:] * a_prev], dim=1)
+        off *= 2
+    return decay, inp
+
+
+def _selective_scan(u, dt, a, b_ssm, c_ssm, d_skip, *, chunk: int = 256,
+                    h0=None, impl: str = "auto"):
+    """y_t = C_t . h_t + D u_t,   h_t = exp(dt_t A) h_{t-1} + dt_t B_t u_t.
+
+    u, dt [B, S, DI]; a [DI, N]; b/c [B, S, N]; returns (y [B,S,DI] f32,
+    h [B,DI,N] f32).  impl: 'ref' | 'pallas' | 'auto'.  The plain path runs
+    sequence chunks of ``chunk`` steps in order (carry [B, DI, N]) with a
+    log-step associative scan inside each chunk, as the JAX package does;
+    it starts from ``h0`` when given (decode).  The kernel starts from 0 and
+    raises on ``h0``.
+    """
+    if impl == "pallas" or (impl == "auto" and u.is_cuda):
+        return ops.selective_scan(u, dt, a, b_ssm, c_ssm, d_skip, h0=h0)
+    if impl not in ("ref", "auto"):
+        raise ValueError(f"unknown selective scan impl {impl!r}")
+    bsz, s, di = u.shape
+    n = a.shape[1]
+    af = a.float()
+    h = (torch.zeros((bsz, di, n), dtype=torch.float32, device=u.device)
+         if h0 is None else h0.float())
+    # Steps past S would carry dt = 0 (decay 1, input 0) and leave h as it
+    # is, so a short sequence takes one chunk of its own length.
+    q = min(chunk, s)
+    ys = []
+    for t0 in range(0, s, q):
+        sl = slice(t0, t0 + q)
+        dtf = dt[:, sl].float()                                     # [B, Q, DI]
+        decay = torch.exp(dtf[..., None] * af)                      # [B, Q, DI, N]
+        inp = (dtf * u[:, sl].float())[..., None] * b_ssm[:, sl, None, :].float()
+        dec, acc = _prefix_scan(decay, inp)
+        hseq = dec * h[:, None] + acc                               # [B, Q, DI, N]
+        ys.append(torch.einsum("bqdn,bqn->bqd", hseq, c_ssm[:, sl].float()))
+        h = hseq[:, -1]
+    y = torch.cat(ys, dim=1) + u.float() * d_skip.float()
+    return y, h
+
+
+def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
+                impl: str = "auto", h0=None, conv0=None, return_state=False):
+    """Mamba-1 mixer.  x [B, S, D]; params dict p (see ``lm.init_lm``).
+    ``impl`` selects the selective scan.
+
+    The depthwise causal conv is the JAX package's ``conv_general_dilated``
+    with ``feature_group_count=DI`` and left padding ``conv_k - 1`` (none
+    when ``conv0`` carries the previous inputs): a cross-correlation,
+    written as ``conv_k`` shifted f32 multiply-adds, so no convolution
+    library (and no TF32) is involved.
+
+    With ``return_state`` also returns (h_last [B,DI,N], conv_tail
+    [B, conv_k-1, DI]): the last ``conv_k - 1`` rows of the conv's input.
+    """
+    di = p["in_proj"].shape[1] // 2
+    xin, z = (x @ p["in_proj"]).split(di, dim=-1)
+
+    xin_ext = xin if conv0 is None else torch.cat([conv0.to(xin.dtype), xin], dim=1)
+    xe = xin_ext.float()
+    if conv0 is None:
+        xe = F.pad(xe, (0, 0, conv_k - 1, 0))
+    s_out = xe.shape[1] - conv_k + 1
+    w = p["conv_w"].float()                                         # [k, DI]
+    conv = p["conv_b"].float() + sum(xe[:, j:j + s_out] * w[j] for j in range(conv_k))
+    xin_c = F.silu(conv).to(x.dtype)
+
+    xdbc = xin_c @ p["x_proj"]                                      # [B,S,R+2N]
+    dt_raw = xdbc[..., :dt_rank]
+    b_ssm = xdbc[..., dt_rank:dt_rank + ssm_state].contiguous()
+    c_ssm = xdbc[..., dt_rank + ssm_state:].contiguous()
+    dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
+    a = -torch.exp(p["a_log"])
+    y, h_last = _selective_scan(xin_c, dt, a, b_ssm, c_ssm, p["d_skip"], h0=h0,
+                                impl=impl)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ p["out_proj"]
+    if return_state:
+        conv_tail = xin_ext[:, -(conv_k - 1):] if conv_k > 1 else None
+        return out, h_last, conv_tail
+    return out
+
+
+def mamba_decode_step(x, p, h, conv_state, *, dt_rank: int, ssm_state: int,
+                      conv_k: int = 4):
+    """One-token recurrent Mamba step through the plain scan (the kernel
+    starts from h=0).  x [B, 1, D]; h [B, DI, N]; conv_state [B, conv_k-1, DI].
+    Returns (y [B, 1, D], h', conv_state')."""
+    return mamba_block(x, p, dt_rank=dt_rank, ssm_state=ssm_state, conv_k=conv_k,
+                       impl="ref", h0=h, conv0=conv_state, return_state=True)

@@ -1,18 +1,22 @@
-"""Decoder-only LM, dense family: init, prefill and one decode step.
+"""Decoder-only LM, dense, ssm (Mamba-1) and hybrid (Hymba) families: init,
+prefill and one decode step.
 
-The port of the JAX package's ``models/lm.py`` for the dense/GQA family.
+The port of the JAX package's ``models/lm.py`` for those families.
 Parameters keep the JAX leaf names and layouts: per-layer leaves are stacked
-on a leading ``[L, ...]`` axis (``wq [L, d, h, hd]``, ``wo [L, h, hd, d]``,
-...), so carrying weights across is a copy (``repro_torch.convert``).  The
-JAX ``lax.scan`` over layers is a Python loop over the stacked leaves.
+on a leading ``[L, ...]`` axis (``wq [L, d, h, hd]``, ``ssm.in_proj
+[L, d, 2*DI]``, ...), so carrying weights across is a copy
+(``repro_torch.convert``).  The JAX ``lax.scan`` over layers is a Python
+loop over the stacked leaves.
 
 Unlike the JAX package, whose arrays are immutable, ``prefill`` allocates the
-KV cache and ``decode_step`` writes each new position into it in place and
-returns the same dict.
+cache and ``decode_step`` writes each new position (and SSM state) into it in
+place and returns the same dict.
 
-Not ported yet (ROADMAP.md Queue 1): the moe, ssm, hybrid, vlm and encdec
-families, ``train_loss`` with its chunked cross-entropy, and the unrolled
-decode step.
+In the ssm family the JAX code computes ``rms_norm(x, ln2)`` and discards it
+(Mamba-1 has no MLP); the port skips that dead norm, with the same result.
+
+Not ported yet (ROADMAP.md Queue 1): the moe, vlm and encdec families,
+``train_loss`` with its chunked cross-entropy, and the unrolled decode step.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ from repro_torch.models import layers as L
 __all__ = ["init_lm", "prefill", "decode_step", "init_cache", "CacheSpec",
            "check_supported"]
 
+FAMILIES = ("dense", "ssm", "hybrid")
+
 
 def _dtype(name: str) -> torch.dtype:
     return getattr(torch, name)
@@ -35,7 +41,7 @@ def _dtype(name: str) -> torch.dtype:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration this slice of the port does not run."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
             "ROADMAP.md Queue 1 lists it")
@@ -52,7 +58,9 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random params in the JAX package's layout, from a seeded
     ``torch.Generator`` on ``device`` (not bit-equal to ``jax.random``).
-    Norm scales and biases start at zero, as in the JAX init."""
+    Norm scales and biases start at zero, as in the JAX init.  Stacked leaves
+    are drawn one layer at a time, so no f32 temporary is larger than one
+    layer's slice of a leaf."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -64,27 +72,53 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (x * scale).to(pd)
 
-    def zeros(shape):
-        return torch.zeros(shape, dtype=pd, device=device)
+    def stacked(shape, scale):
+        out = torch.empty((n, *shape), dtype=pd, device=device)
+        for i in range(n):
+            out[i] = normal(shape, scale)
+        return out
+
+    def full(shape, value, dtype=pd):
+        return torch.full((n, *shape), value, dtype=dtype, device=device)
 
     s_in = 1.0 / math.sqrt(d)
-    layers = {
-        "ln1": zeros((n, d)),
-        "ln2": zeros((n, d)),
-        "wq": normal((n, d, h, hd), s_in),
-        "wk": normal((n, d, k, hd), s_in),
-        "wv": normal((n, d, k, hd), s_in),
-        "wo": normal((n, h, hd, d), 1.0 / math.sqrt(h * hd)),
-        "wi_gate": normal((n, d, f), s_in),
-        "wi_up": normal((n, d, f), s_in),
-        "wo_mlp": normal((n, f, d), 1.0 / math.sqrt(f)),
-    }
-    if cfg.qkv_bias:
-        layers.update(bq=zeros((n, h, hd)), bk=zeros((n, k, hd)),
-                      bv=zeros((n, k, hd)))
+    layers = {"ln1": full((d,), 0.0), "ln2": full((d,), 0.0)}
+    if cfg.family != "ssm":
+        layers.update(
+            wq=stacked((d, h, hd), s_in),
+            wk=stacked((d, k, hd), s_in),
+            wv=stacked((d, k, hd), s_in),
+            wo=stacked((h, hd, d), 1.0 / math.sqrt(h * hd)),
+        )
+        if cfg.qkv_bias:
+            layers.update(bq=full((h, hd), 0.0), bk=full((k, hd), 0.0),
+                          bv=full((k, hd), 0.0))
+    if cfg.family in ("dense", "hybrid"):
+        layers.update(
+            wi_gate=stacked((d, f), s_in),
+            wi_up=stacked((d, f), s_in),
+            wo_mlp=stacked((f, d), 1.0 / math.sqrt(f)),
+        )
+    if cfg.family in ("ssm", "hybrid"):
+        di, ns, r, ck = (cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_dt_rank,
+                         cfg.ssm_conv)
+        a_log = torch.log(torch.arange(1, ns + 1, dtype=torch.float32, device=device))
+        layers["ssm"] = {
+            "in_proj": stacked((d, 2 * di), s_in),
+            "conv_w": stacked((ck, di), 1.0 / math.sqrt(ck)),
+            "conv_b": full((di,), 0.0),
+            "x_proj": stacked((di, r + 2 * ns), 1.0 / math.sqrt(di)),
+            "dt_proj": stacked((r, di), 1.0 / math.sqrt(r)),
+            "dt_bias": full((di,), math.log(math.e - 1)),  # softplus^-1(1)
+            "a_log": a_log.expand(n, di, ns).contiguous(),
+            "d_skip": full((di,), 1.0, torch.float32),
+            "out_proj": stacked((di, d), 1.0 / math.sqrt(di)),
+        }
+        if cfg.family == "hybrid":
+            layers["ln_ssm"] = full((d,), 0.0)
     params = {
         "embed": normal((cfg.vocab_size, d), s_in),
-        "final_norm": zeros((d,)),
+        "final_norm": torch.zeros((d,), dtype=pd, device=device),
         "layers": layers,
     }
     if not cfg.tie_embeddings:
@@ -122,13 +156,26 @@ def _logits(params, hidden, cfg: ModelConfig):
     return torch.einsum("bsd,dv->bsv", hidden.float(), w.float())
 
 
-def _layer(params, i: int) -> dict:
-    return {name: leaf[i] for name, leaf in params["layers"].items()}
+def _layer(tree, i: int) -> dict:
+    """Layer ``i`` of the stacked leaves, nested dicts (``ssm``) included."""
+    return {name: _layer(leaf, i) if isinstance(leaf, dict) else leaf[i]
+            for name, leaf in tree.items()}
 
 
-def _mlp(x, lp, cfg: ModelConfig):
-    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
+def _mlp(x, lp, cfg: ModelConfig, norm_impl: str):
+    h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps, impl=norm_impl)
     return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
+
+
+def _mamba(h, lp, cfg: ModelConfig, **kw):
+    return L.mamba_block(h, lp["ssm"], dt_rank=cfg.resolved_dt_rank,
+                         ssm_state=cfg.ssm_state, conv_k=cfg.ssm_conv,
+                         return_state=True, **kw)
+
+
+def _fuse(mix, ssm_o, lp, cfg: ModelConfig, norm_impl: str):
+    """Hymba: mean-fuse the attention output with the normalised SSM output."""
+    return 0.5 * (mix + L.rms_norm(ssm_o, lp["ln_ssm"], cfg.norm_eps, impl=norm_impl))
 
 
 # ---------------------------------------------------------------------------
@@ -138,35 +185,51 @@ def _mlp(x, lp, cfg: ModelConfig):
 
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """KV-cache layout on one card: the true kv heads, ``cache_len``
-    positions, int8 payload with f32 per-row scales when ``quantized``."""
+    """Cache layout on one card: the true kv heads, ``cache_len`` positions
+    (for a sliding window shorter than the sequence, a ring of ``window``
+    positions indexed by ``pos % window``), int8 payload with f32 per-row
+    scales when ``quantized``.  The ssm family keeps no KV cache."""
 
     kv_heads: int
     cache_len: int
+    ring: bool = False
     quantized: bool = False
 
     @staticmethod
     def build(cfg: ModelConfig, seq_len: int) -> "CacheSpec":
         check_supported(cfg)
-        return CacheSpec(cfg.num_kv_heads, seq_len, cfg.kv_cache_dtype == "int8")
+        if cfg.family == "ssm":
+            return CacheSpec(0, 0, False, False)
+        quant = cfg.kv_cache_dtype == "int8"
+        window = cfg.sliding_window if cfg.family == "hybrid" else 0
+        if window and window < seq_len:
+            return CacheSpec(cfg.num_kv_heads, window, True, quant)
+        return CacheSpec(cfg.num_kv_heads, seq_len, False, quant)
 
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
                device=None) -> dict:
-    """Allocate the zeroed decode cache; ``pos`` is the next position."""
+    """Allocate the zeroed decode cache; ``pos`` is the next position.  The
+    SSM state ``ssm_h`` is f32 [L, B, DI, N]; ``conv`` holds the last
+    ``conv_k - 1`` conv inputs [L, B, conv_k-1, DI] in the compute dtype."""
     device = resolve_device(device)
     cd = dtype or _dtype(cfg.compute_dtype)
-    shape = (cfg.num_layers, batch, spec.kv_heads, spec.cache_len,
-             cfg.resolved_head_dim)
-    store = torch.int8 if spec.quantized else cd
-    cache = {
-        "pos": 0,
-        "k": torch.zeros(shape, dtype=store, device=device),
-        "v": torch.zeros(shape, dtype=store, device=device),
-    }
-    if spec.quantized:
-        cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
-        cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    cache = {"pos": 0}
+    if cfg.family != "ssm":
+        shape = (cfg.num_layers, batch, spec.kv_heads, spec.cache_len,
+                 cfg.resolved_head_dim)
+        store = torch.int8 if spec.quantized else cd
+        cache["k"] = torch.zeros(shape, dtype=store, device=device)
+        cache["v"] = torch.zeros(shape, dtype=store, device=device)
+        if spec.quantized:
+            cache["k_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+            cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    if cfg.family in ("ssm", "hybrid"):
+        di, n, ck = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
+        cache["ssm_h"] = torch.zeros((cfg.num_layers, batch, di, n),
+                                     dtype=torch.float32, device=device)
+        cache["conv"] = torch.zeros((cfg.num_layers, batch, ck - 1, di), dtype=cd,
+                                    device=device)
     return cache
 
 
@@ -185,53 +248,92 @@ def _write_kv(cache, i: int, start: int, k, v, spec: CacheSpec, cd):
         cache["v"][i, :, :, start:stop] = v.to(cd)
 
 
+def _write_prefill_kv(cache, i: int, k, v, spec: CacheSpec, cd):
+    """The prompt's k/v into layer ``i``.  A ring keeps the last ``W``
+    positions, position ``p`` at index ``p % W`` so decode continues the
+    ring: the JAX package's roll of the tail by ``S % W``."""
+    s, w = k.shape[2], spec.cache_len
+    if spec.ring and s > w:
+        k = torch.roll(k[:, :, -w:], shifts=s % w, dims=2)
+        v = torch.roll(v[:, :, -w:], shifts=s % w, dims=2)
+    _write_kv(cache, i, 0, k, v, spec, cd)
+
+
 def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto", ssm_impl: str = "auto",
+            norm_impl: str = "auto"):
     """Full-sequence forward.  tokens [B, S] on the params' device.  Returns
-    (last-position f32 logits [B, V], filled cache)."""
+    (last-position f32 logits [B, V], filled cache).  ``attn_impl``,
+    ``ssm_impl`` and ``norm_impl`` select attention, selective scan and
+    RMSNorm ('pallas': the hand-written kernel; 'auto': the kernel for CUDA
+    inputs, the plain version for CPU inputs)."""
     cd = _dtype(cfg.compute_dtype)
     x = params["embed"][tokens].to(cd)
     b, s, _ = x.shape
-    if s > spec.cache_len:
+    if cfg.family != "ssm" and not spec.ring and s > spec.cache_len:
         raise ValueError(
             f"prefill length {s} exceeds cache_len {spec.cache_len}; "
             "build the CacheSpec with a longer max_len")
     positions = torch.arange(s, device=x.device)
+    window = cfg.sliding_window if cfg.family == "hybrid" else 0
     cache = init_cache(cfg, spec, b, device=x.device)
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(h, lp, cfg, positions)
-        o = L.attention(q, k, v, causal=True, window=0, impl=attn_impl)
-        x = x + _attn_out(o, lp)
-        _write_kv(cache, i, 0, k, v, spec, cd)
-        x = _mlp(x, lp, cfg)
-    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lp = _layer(params["layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
+        if cfg.family != "ssm":
+            q, k, v = _qkv(h, lp, cfg, positions)
+            o = L.attention(q, k, v, causal=True, window=window, impl=attn_impl)
+            mix = _attn_out(o, lp)
+            _write_prefill_kv(cache, i, k, v, spec, cd)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm_o, h_last, conv_tail = _mamba(h, lp, cfg, impl=ssm_impl)
+            cache["ssm_h"][i] = h_last
+            cache["conv"][i] = conv_tail.to(cd)
+            mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
+        x = x + mix
+        if cfg.family != "ssm":
+            x = _mlp(x, lp, cfg, norm_impl)
+    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = s
     return _logits(params, hidden[:, -1:], cfg)[:, 0], cache
 
 
-def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
-    """One new token per sequence.  tokens [B].  Writes the token's K/V into
-    ``cache`` in place, advances ``cache['pos']`` and returns
-    (f32 logits [B, V], cache)."""
+def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
+                norm_impl: str = "auto"):
+    """One new token per sequence.  tokens [B].  Writes the token's K/V (at
+    ``pos % W`` in a ring) and the new SSM state into ``cache`` in place,
+    advances ``cache['pos']`` and returns (f32 logits [B, V], cache).  The
+    SSM branch runs the recurrent step, not the scan kernel."""
     cd = _dtype(cfg.compute_dtype)
     pos = cache["pos"]
-    if pos >= spec.cache_len:
+    if cfg.family != "ssm" and not spec.ring and pos >= spec.cache_len:
         raise ValueError(f"cache is full ({spec.cache_len} positions)")
+    write = pos % spec.cache_len if spec.ring else pos
+    cache_len = min(pos + 1, spec.cache_len) if spec.ring else pos + 1
     x = params["embed"][tokens[:, None]].to(cd)  # [B, 1, D]
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
     for i in range(cfg.num_layers):
-        lp = _layer(params, i)
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(h, lp, cfg, positions)
-        _write_kv(cache, i, pos, k, v, spec, cd)
-        scales = {}
-        if spec.quantized:
-            scales = {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
-        o = L.decode_attention(q, cache["k"][i], cache["v"][i], pos + 1, **scales)
-        x = x + _attn_out(o, lp)
-        x = _mlp(x, lp, cfg)
-    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+        lp = _layer(params["layers"], i)
+        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
+        if cfg.family != "ssm":
+            q, k, v = _qkv(h, lp, cfg, positions)
+            _write_kv(cache, i, write, k, v, spec, cd)
+            scales = {}
+            if spec.quantized:
+                scales = {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
+            o = L.decode_attention(q, cache["k"][i], cache["v"][i], cache_len, **scales)
+            mix = _attn_out(o, lp)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm_o, h_new, conv_new = L.mamba_decode_step(
+                h, lp["ssm"], cache["ssm_h"][i], cache["conv"][i],
+                dt_rank=cfg.resolved_dt_rank, ssm_state=cfg.ssm_state,
+                conv_k=cfg.ssm_conv)
+            cache["ssm_h"][i] = h_new
+            cache["conv"][i] = conv_new.to(cd)
+            mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
+        x = x + mix
+        if cfg.family != "ssm":
+            x = _mlp(x, lp, cfg, norm_impl)
+    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = pos + 1
     return _logits(params, hidden, cfg)[:, 0], cache

@@ -1,7 +1,7 @@
 """Batched serving engine: prefill + decode loop over the KV cache.
 
 The static-batch engine of the JAX package's ``serve/engine.py`` for the
-decoder-only dense family.  Feeding prompts from the data tier
+decoder-only dense, ssm and hybrid families.  Feeding prompts from the data tier
 (``generate_from_tier``) waits for a port of ``serve/datatier.py``
 (ROADMAP.md Queue 1).
 """
@@ -19,16 +19,21 @@ __all__ = ["ServeEngine"]
 
 
 class ServeEngine:
-    """``attn_impl`` selects the prefill attention ('pallas' is the
-    hand-written flash kernel on the card).  ``device`` defaults to the card
-    and raises without one; pass ``device='cpu'`` to run on the CPU."""
+    """``attn_impl`` and ``ssm_impl`` select the prefill attention and
+    selective scan, ``norm_impl`` every RMSNorm of prefill and decode
+    ('pallas' is the hand-written CUDA kernel; the default 'auto' takes it
+    for CUDA inputs and raises where it refuses one).  ``device`` defaults to the card and
+    raises without one; pass ``device='cpu'`` to run on the CPU."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
-                 attn_impl: str = "auto", device=None):
+                 attn_impl: str = "auto", ssm_impl: str = "auto",
+                 norm_impl: str = "auto", device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = CacheSpec.build(cfg, max_len)
         self.attn_impl = attn_impl
+        self.ssm_impl = ssm_impl
+        self.norm_impl = norm_impl
         self.params = _to_device(params, self.device)
 
     @torch.inference_mode()
@@ -37,12 +42,14 @@ class ServeEngine:
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
         return lm.prefill(self.params, tokens, self.cfg, self.spec,
-                          attn_impl=self.attn_impl)
+                          attn_impl=self.attn_impl, ssm_impl=self.ssm_impl,
+                          norm_impl=self.norm_impl)
 
     @torch.inference_mode()
     def step(self, cache, tokens):
         """One decode step for tokens [B] on the device; updates ``cache``."""
-        return lm.decode_step(self.params, cache, tokens, self.cfg, self.spec)
+        return lm.decode_step(self.params, cache, tokens, self.cfg, self.spec,
+                              norm_impl=self.norm_impl)
 
     @torch.inference_mode()
     def generate(self, prompts, num_tokens: int, *, greedy: bool = True,

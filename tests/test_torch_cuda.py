@@ -11,6 +11,8 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import selective_scan as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -65,6 +67,11 @@ def test_auto_attention_takes_the_kernel_on_the_card(cuda):
     want = ref.attention_ref(q, k, v, causal=True)
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=TOL[torch.bfloat16], rtol=TOL[torch.bfloat16])
+    # no give-way to a plain path on the card: what the kernel refuses raises
+    with pytest.raises(ValueError, match="head dim"):
+        layers.attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                         v[..., :24].contiguous(), impl="auto")
+    assert fa.launches == before + 1
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
@@ -78,3 +85,123 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         fa.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError, match="divide"):
         fa.flash_attention(q[:, :3].contiguous(), k, v)
+
+
+# Selective scan: the sweep of test_kernels.py, a ragged DI, and hymba-1.5b's
+# DI at a ragged S.  Tolerances as test_kernels.py.
+SCAN_CASES = [
+    (2, 64, 32, 8),
+    (1, 96, 64, 16),
+    (2, 50, 32, 4),
+    (1, 100, 200, 16),
+    (2, 257, 3200, 16),
+]
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+def _scan_inputs(b, s, di, n, dtype, device, seed=7):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    u, bm, cm = randn(b, s, di), randn(b, s, n), randn(b, s, n)
+    dt = torch.nn.functional.softplus(randn(b, s, di))
+    a = -torch.exp(0.3 * randn(di, n))
+    d = 1.0 + 0.1 * randn(di)
+    return [u.to(dtype), dt.to(dtype), a, bm.to(dtype), cm.to(dtype), d]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", SCAN_CASES)
+def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
+    args = _scan_inputs(b, s, di, n, dtype, cuda)
+    before = ss.launches
+    y, h = ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    assert ss.launches == before + 1
+    want_y, want_h = ref.selective_scan_ref(*args)
+    tol = SCAN_TOL[dtype]
+    for got, want in ((y, want_y), (h, want_h)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol, rtol=tol)
+
+
+# RMSNorm: the sweep of test_kernels.py, the serving shapes (prefill and
+# decode rows of qwen2-0.5b, hymba-1.5b and falcon-mamba-7b), a d that takes
+# the scalar (unvectorised) path, and a row wider than 48 KB of f32.
+NORM_CASES = [(64, 128), (37, 256), (5, 64), (2048, 896), (6144, 1600), (2048, 4096),
+              (4, 896), (4, 1600), (4, 4096), (9, 1001), (3, 20000)]
+NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", NORM_CASES)
+def test_norm_kernel_matches_plain_version(cuda, rows, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    scale = 0.1 * torch.randn(d, generator=g, device=cuda)
+    before = rn.launches
+    out = ops.rms_norm(x, scale, eps=1e-6)
+    torch.cuda.synchronize()
+    assert rn.launches == before + 1 and out.dtype == dtype
+    want = ref.rms_norm_ref(x, scale, 1e-6)
+    tol = NORM_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+def test_auto_takes_the_scan_and_norm_kernels_on_the_card(cuda):
+    from repro_torch.models import layers
+
+    args = _scan_inputs(2, 40, 64, 16, torch.bfloat16, cuda)
+    before = ss.launches
+    y, _ = layers._selective_scan(*args, impl="auto")
+    assert ss.launches == before + 1
+    want, _ = ref.selective_scan_ref(*args)
+    np.testing.assert_allclose(y.cpu().numpy(), want.cpu().numpy(), atol=5e-2, rtol=5e-2)
+    # from a state: 'auto' raises on the card (the kernel starts from h=0),
+    # so the recurrent step asks for the plain scan
+    h0 = torch.zeros(2, 64, 16, device=cuda)
+    with pytest.raises(NotImplementedError, match="h0"):
+        layers._selective_scan(*args, h0=h0, impl="auto")
+    layers._selective_scan(*args, h0=h0, impl="ref")
+    assert ss.launches == before + 1
+
+    x = torch.randn(4, 7, 1600, device=cuda).to(torch.bfloat16)
+    scale = torch.zeros(1600, device=cuda).to(torch.bfloat16)
+    before = rn.launches
+    out = layers.rms_norm(x, scale, 1e-6, impl="auto")
+    assert rn.launches == before + 1
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.rms_norm_ref(x, scale).float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="dtype"):
+        layers.rms_norm(x.half(), scale, 1e-6, impl="auto")
+    assert rn.launches == before + 1
+
+
+def test_scan_and_norm_kernels_refuse_what_they_do_not_take(cuda):
+    u, dt, a, bm, cm, d = _scan_inputs(1, 16, 32, 8, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ss.selective_scan(u.cpu(), dt, a, bm, cm, d)
+    with pytest.raises(ValueError, match="dtype"):
+        ss.selective_scan(u.half(), dt.half(), a, bm.half(), cm.half(), d)
+    with pytest.raises(ValueError, match="want torch.float32"):
+        ss.selective_scan(u, dt, a.to(torch.bfloat16), bm, cm, d)
+    with pytest.raises(ValueError, match="contiguous"):
+        ss.selective_scan(u, dt, a, bm.transpose(1, 2).contiguous().transpose(1, 2), cm, d)
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_scan(u, dt, a[:, :5].contiguous(), bm[..., :5].contiguous(),
+                          cm[..., :5].contiguous(), d)
+    with pytest.raises(NotImplementedError, match="h0"):
+        ops.selective_scan(u, dt, a, bm, cm, d, h0=torch.zeros(1, 32, 8, device=cuda))
+
+    x, scale = torch.randn(4, 64, device=cuda), torch.zeros(64, device=cuda)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        rn.rms_norm(x.cpu(), scale)
+    with pytest.raises(ValueError, match="dtype"):
+        rn.rms_norm(x.half(), scale)
+    with pytest.raises(ValueError, match="contiguous"):
+        rn.rms_norm(x.T, torch.zeros(4, device=cuda))
+    with pytest.raises(ValueError, match="does not fit"):
+        rn.rms_norm(x, scale[:32])

@@ -33,6 +33,8 @@ def test_port_imports_no_jax_and_no_repro():
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["bad"] == []
     for name in ("repro_torch.kernels.flash_attention", "repro_torch.kernels.ops",
+                 "repro_torch.kernels.selective_scan", "repro_torch.kernels.rmsnorm",
+                 "repro_torch.configs.hymba_1_5b", "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.models.lm", "repro_torch.serve.engine",
                  "repro_torch.launch.serve", "repro_torch.convert"):
         assert name in report["imported"]
