@@ -8,10 +8,14 @@ Phases, all run in order, each of which must pass:
                kernels/csrc`` with nvcc, one process per source, in parallel;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the shape sweeps of ``tests/test_kernels.py`` in f32 and
-               bf16, plus the shapes the serving paths give it;
+               bf16, the edges of the bf16 tensor-core attention kernel, plus
+               the shapes the serving paths give it;
   3. small   — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at ``reduced()``
                in f32: the card's engine (through the kernels) against the
-               CPU engine (plain versions), the hymba ring cache wrapped;
+               CPU engine (plain versions), the hymba ring cache wrapped; then
+               qwen2-0.5b and hymba-1.5b at full width and 2 layers in bf16:
+               prefill logits through the kernels against the plain versions,
+               planted attention faults must land above the limit;
   4. serve   — each serving path at full width in bf16, random weights from
                seed 0, through ``ServeEngine.generate``: qwen2-0.5b (dense:
                K2, K1), hymba-1.5b (hybrid, full depth: K2, K3, K1) and
@@ -24,7 +28,10 @@ Phases, all run in order, each of which must pass:
                kernels must drift from the f32 run no further than twice
                what the plain versions drift;
   5. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
-               medians of CUDA-graph replays at the serving shapes), the
+               medians of CUDA-graph replays at the serving shapes; the
+               attention row adds its TFLOP/s, the share of computed scores
+               the mask admits and the f32 kernel's time, the norm row its
+               decode-row times), the
                card's name and power limit, and last the
                ``{"ok": true, "device": ...}`` line.
 
@@ -71,6 +78,20 @@ ATTN_SWEEP = [
     (1, 4, 2, 128, 128, 32, True, 32),
     (1, 2, 2, 80, 112, 32, False, 0),
 ]
+# Edges of the bf16 tensor-core kernel (64-row query tiles over 64-key
+# tiles), as in tests/test_torch_cuda.py: ragged Sq/Sk and Sq != Sk, windows
+# that start mid-tile, GQA groups 5 and 7, hd 16/32/128, one query tile.
+ATTN_TC_EDGES = [
+    (1, 2, 1, 100, 150, 64, True, 0),
+    (1, 2, 2, 130, 70, 64, False, 0),
+    (1, 4, 2, 300, 300, 64, True, 100),
+    (1, 2, 1, 200, 230, 32, False, 37),
+    (1, 10, 2, 128, 128, 64, True, 0),
+    (1, 14, 2, 96, 96, 64, True, 0),
+    (2, 2, 1, 128, 128, 16, True, 0),
+    (1, 2, 1, 160, 200, 128, True, 70),
+    (2, 3, 1, 40, 40, 64, True, 0),
+]
 # The shapes prefill gives the flash kernel: qwen2-0.5b (B=4, H=14, K=2,
 # S=512, causal) and hymba-1.5b (B=4, H=25, K=5, S=1536, window 1024).
 ATTN_QWEN = (4, 14, 2, 512, 512, 64, True, 0)
@@ -86,7 +107,8 @@ SCAN_FALCON = (4, 512, 8192, 16)
 NORM_SWEEP = [(64, 128), (37, 256), (5, 64)]
 NORM_HYMBA = (6144, 1600)
 NORM_FALCON = (2048, 4096)
-NORM_SERVE = [(2048, 896), NORM_HYMBA, NORM_FALCON, (4, 896), (4, 1600), (4, 4096)]
+NORM_DECODE = [(4, 896), (4, 1600), (4, 4096)]
+NORM_SERVE = [(2048, 896), NORM_HYMBA, NORM_FALCON] + NORM_DECODE
 
 # Serving paths, each at full width and depth: (arch, batch, prompt, new tokens).
 SERVE = [
@@ -108,6 +130,14 @@ LOGIT_ATOL_F32 = 1e-2
 BF16_DRIFT_RATIO = 2.0
 # Small f32 check, card kernels vs CPU plain versions: a few f32 ulps per op.
 SMALL_TOL = 1e-4
+# bf16 prefill logits through the kernels against the plain versions at full
+# width and 2 layers, the serving batch and prompt: shallow enough that bf16
+# rounding cannot hide a fault of the bf16 tensor-core attention kernel,
+# which the f32 checks above do not run.  On an H100 the gap read 0.049
+# (qwen2) and 0.038 (hymba), the planted attention faults 0.33-6.96; the
+# limit sits 3x above the gap and 2x below the smallest fault (PERF.md §6).
+SMALL_BF16 = [("qwen2-0.5b", 4, 512), ("hymba-1.5b", 4, 1536)]
+SMALL_BF16_ATOL = 0.15
 
 
 def log(msg: str) -> None:
@@ -285,6 +315,21 @@ def mask_ok(sq, sk, causal, window, device="cpu"):
     return ok
 
 
+def score_entries(shape) -> tuple:
+    """(admitted, computed): the score entries the mask admits, and those the
+    bf16 kernel computes (whole 64x64 tiles over each query tile's
+    ``key_tile_range``), over all heads."""
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, _, sq, sk, _, causal, window = shape
+    admitted = int(mask_ok(sq, sk, causal, window).sum())
+    tiles = 0
+    for q0 in range(0, sq, fa.BLOCK_Q):
+        begin, end = fa.key_tile_range(q0, sq, sk, causal, window)
+        tiles += -(-(end - begin) // fa.BLOCK_K)
+    return admitted * b * h, tiles * fa.BLOCK_Q * fa.BLOCK_K * b * h
+
+
 def attention_bound(q, k, causal: bool, window: int):
     """Least time (ms) for attention on these inputs: the larger of the bytes
     (q, k, v read once, o written once) over HBM and the FLOPs of the
@@ -329,16 +374,36 @@ def norm_bound(x, scale):
 
 def phase_build():
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
 
     t0 = time.perf_counter()
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s")
     for name, lib in libs.items():
-        report = [ln.strip() for ln in lib.with_suffix(".log").read_text().splitlines()
-                  if "registers" in ln or "spill" in ln]
-        log(f"[build] {name}: {lib.name}; ptxas: " + " | ".join(report))
+        log(f"[build] {name}: {lib.name}; ptxas, per entry function:")
+        for fn, info in ptxas_report(lib.with_suffix(".log").read_text()):
+            log(f"[build]   {fn}: {info}")
+    log("[build] flash_attention bf16 dynamic shared memory per block: "
+        + ", ".join(f"hd {hd}: {fa.tc_smem_bytes(hd)} B" for hd in fa.HEAD_DIMS))
     if sorted(libs) != ["flash_attention", "rms_norm", "selective_scan"]:
         raise AssertionError(f"unexpected kernel set {sorted(libs)}")
+
+
+def ptxas_report(text: str) -> list:
+    """[(entry function, 'registers, shared memory, spills')] from the
+    ``nvcc -Xptxas -v`` report of one library."""
+    out, fn, info = [], None, []
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            if fn:
+                out.append((fn, "; ".join(info)))
+            fn, info = ln.split("'")[1][:90], []
+        elif fn and ("spill" in ln or "registers" in ln):
+            info.append(ln.replace("ptxas info    : ", ""))
+    if fn:
+        out.append((fn, "; ".join(info)))
+    return out
 
 
 def _agree(name, label, got, want, dtype) -> float:
@@ -366,9 +431,10 @@ def phase_kernels():
     def note(name, key, err):
         worst[name][key] = max(worst[name].get(key, 0.0), err)
 
-    for shape in ATTN_SWEEP + [ATTN_QWEN, ATTN_HYMBA]:
+    for shape in ATTN_SWEEP + ATTN_TC_EDGES + [ATTN_QWEN, ATTN_HYMBA]:
         serve = shape in (ATTN_QWEN, ATTN_HYMBA)
-        for dtype in [torch.bfloat16] if serve else list(TOL["flash_attention"]):
+        bf16_only = serve or shape in ATTN_TC_EDGES
+        for dtype in [torch.bfloat16] if bf16_only else list(TOL["flash_attention"]):
             q, k, v = attention_inputs(shape, dtype)
             causal, window = shape[6], shape[7]
             err = _agree("flash_attention", str(shape), [fa.flash_attention(
@@ -428,6 +494,48 @@ def phase_small():
             f"{np.array_equal(toks, want_toks)}; prefill launches {counts}")
         if not err <= SMALL_TOL or not np.array_equal(toks, want_toks):
             raise AssertionError(f"reduced {arch} on the card disagrees with the CPU")
+    phase_small_bf16()
+
+
+def phase_small_bf16():
+    """``SMALL_BF16``'s models at full width and 2 layers in bf16: prefill
+    logits through the kernels within ``SMALL_BF16_ATOL`` of the plain
+    versions', every planted attention fault beyond it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    for arch, batch, prompt in SMALL_BF16:
+        cfg = get_config(arch).replace(num_layers=2)
+        params = lm.init_lm(cfg, seed=0, device="cuda")
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (batch, prompt)).astype(np.int32)
+        kernels = ServeEngine(cfg, params, max_len=prompt + 1, device="cuda",
+                              attn_impl="pallas", ssm_impl="pallas", norm_impl="pallas")
+        plain = ServeEngine(cfg, params, max_len=prompt + 1, device="cuda",
+                            attn_impl="ref", ssm_impl="ref", norm_impl="ref")
+        reset_counts()
+        got = kernels.prefill(prompts)[0]
+        counts = read_counts()
+        want = plain.prefill(prompts)[0]
+        err = (got.float() - want.float()).abs().max().item()
+        faults = planted_fault_diffs(kernels, prompts, want.float(), cfg,
+                                     only="flash_attention")
+        want_counts = expected_counts(cfg, 0)
+        log(f"[small] {arch} full width, 2 layers, bf16, batch {batch} prompt {prompt}: "
+            f"prefill logits kernels vs plain max_abs_err {err:.4f} (tol "
+            f"{SMALL_BF16_ATOL}); planted attention faults "
+            f"{ {k: round(v, 4) for k, v in faults.items()} } (each must exceed the tol); "
+            f"|logits| max {want.float().abs().max().item():.2f}; launches {counts}")
+        if any(counts[k] != want_counts[k] for k in counts):
+            raise AssertionError(f"{arch}: launches {counts}, want {want_counts}")
+        if not torch.isfinite(got).all() or not err <= SMALL_BF16_ATOL:
+            raise AssertionError(f"{arch}: 2-layer bf16 prefill logits disagree")
+        if not all(d > SMALL_BF16_ATOL for d in faults.values()):
+            raise AssertionError(f"{arch}: the 2-layer bf16 limit misses a planted fault")
+        del kernels, plain, params
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def expected_counts(cfg, gen: int) -> dict:
@@ -443,9 +551,10 @@ def expected_counts(cfg, gen: int) -> dict:
             "rms_norm": norms * (1 + gen), "rms_norm_per_pass": norms}
 
 
-def planted_fault_diffs(eng, prompts, ref_logits, cfg) -> dict:
+def planted_fault_diffs(eng, prompts, ref_logits, cfg, only: str | None = None) -> dict:
     """Max abs prefill-logit difference from ``ref_logits`` when a kernel is
-    fed a planted fault.  The negative control of the logit tolerance.
+    fed a planted fault (``only``: the faults of that kernel alone).  The
+    negative control of the logit tolerance.
     Attention: no causal mask, scale 1/hd instead of 1/sqrt(hd), each query
     head reading the next kv head.  Scan: no D*u skip, exp(A) in place of
     exp(dt*A), B and C swapped.  Norm: scale in place of 1 + scale."""
@@ -488,13 +597,15 @@ def planted_fault_diffs(eng, prompts, ref_logits, cfg) -> dict:
         faults.update({f: ("selective_scan", scan(f)) for f in
                        ("no_D_skip", "exp(A)_not_exp(dt*A)", "B_C_swapped")})
     faults["norm_scale_not_1+scale"] = ("rms_norm", norm)
+    if only:
+        faults = {f: v for f, v in faults.items() if v[0] == only}
     diffs = {}
     try:
         for fault, (name, fn) in faults.items():
             setattr(ops, name, fn)
             got, _ = eng.prefill(prompts)
             setattr(ops, name, real[name])
-            diffs[fault] = (got - ref_logits).abs().max().item()
+            diffs[fault] = (got.float() - ref_logits).abs().max().item()
     finally:
         for name, fn in real.items():
             setattr(ops, name, fn)
@@ -716,12 +827,21 @@ def phase_report(launches: dict, worst: dict) -> list:
                 is_causal=causal and window == 0, enable_gqa=True),
         })
         bound_ms, bound_by = attention_bound(q, k, causal, window)
+        admitted, computed = score_entries(shape)
+        g = t["graph"]
+        g["tflop_s"] = 4 * shape[5] * admitted / (g["kernel"] * 1e-3) / 1e12
+        g["admitted_share"] = admitted / computed
         log(f"[report] flash_attention {shape} ms per call: {t}; bound {bound_ms:.4f} "
-            f"({bound_by})")
-        return t["graph"], bound_ms, bound_by
+            f"({bound_by}); {g['tflop_s']:.1f} TFLOP/s of admitted scores; mask admits "
+            f"{admitted} of {computed} computed scores ({g['admitted_share']:.4f})")
+        return g, bound_ms, bound_by
 
     hy, hy_bound, hy_by = attn_times(ATTN_HYMBA)
     qw, qw_bound, qw_by = attn_times(ATTN_QWEN)
+    q32, k32, v32 = attention_inputs(ATTN_QWEN, torch.float32)
+    f32_ms = graph_ms(lambda: fa.flash_attention(q32, k32, v32, causal=True))
+    log(f"[report] flash_attention {ATTN_QWEN} f32 (SIMT kernel) ms per call (graph): "
+        f"{f32_ms:.4f}")
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -734,10 +854,13 @@ def phase_report(launches: dict, worst: dict) -> list:
         "sweep_max_abs_err": {k: v for k, v in worst["flash_attention"].items() if k != "serve"},
         "ms": hy["kernel"], "kernel_ms": hy["kernel"], "plain_ms": hy["plain"],
         "bound_ms": hy_bound, "bound_by": hy_by, "library_ms": hy["library"],
+        "tflop_s": hy["tflop_s"], "admitted_share": hy["admitted_share"],
         "qwen2_shape": {"shape": "q [4,14,512,64] k/v [4,2,512,64] bf16 causal",
                         "kernel_ms": qw["kernel"], "plain_ms": qw["plain"],
                         "bound_ms": qw_bound, "bound_by": qw_by,
-                        "library_ms": qw["library"]},
+                        "library_ms": qw["library"], "tflop_s": qw["tflop_s"],
+                        "admitted_share": qw["admitted_share"],
+                        "f32_simt_kernel_ms": f32_ms},
     })
 
     def scan_times(shape):
@@ -783,11 +906,17 @@ def phase_report(launches: dict, worst: dict) -> list:
         })["graph"]
         bound_ms, bound_by = norm_bound(x, scale)
         log(f"[report] rms_norm {shape} bf16 ms per call (graph): {t}; bound "
-            f"{bound_ms:.4f} ({bound_by})")
+            f"{bound_ms:.4f} ({bound_by}); {rn.launch_shape(*shape, x.dtype)}")
         return t, bound_ms, bound_by
 
     nh, nh_bound, nh_by = norm_times(NORM_HYMBA)
     nf, nf_bound, nf_by = norm_times(NORM_FALCON)
+    decode = {}
+    for shape in NORM_DECODE:
+        t, bound_ms, _ = norm_times(shape)
+        decode[f"{shape[0]}x{shape[1]}"] = {
+            "kernel_ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms,
+            "library_ms": t["library"]}
     rows.append({
         "name": "rms_norm", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rms_norm.cu",
@@ -803,6 +932,7 @@ def phase_report(launches: dict, worst: dict) -> list:
         "falcon_shape": {"shape": "x [2048,4096] bf16", "kernel_ms": nf["kernel"],
                          "plain_ms": nf["plain"], "bound_ms": nf_bound,
                          "bound_by": nf_by, "library_ms": nf["library"]},
+        "decode_rows": decode,
     })
     return rows
 

@@ -60,7 +60,7 @@ def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip, *, h0=None,
 def rms_norm(x, scale, *, eps: float = 1e-6, block_rows: int = 256):
     """x [..., d]; scale [d].  ``x * rsqrt(mean(x^2) + eps) * (1 + scale)``
     in x's dtype.  ``block_rows`` is the Pallas kernel's row tile, kept so
-    calls carry over; the CUDA kernel runs one row per block."""
+    calls carry over; the CUDA kernel runs one row per warp."""
     del block_rows
     if _on_cpu(x, "rms_norm"):
         return ref.rms_norm_ref(x, scale, eps)

@@ -5,22 +5,40 @@ kernel ``repro/kernels/rmsnorm.py::rms_norm_kernel``.  It launches on
 PyTorch's current stream, allocates nothing and does not synchronise; this
 wrapper validates the inputs, allocates the output and raises if the launch
 is refused.  ``launches`` counts successful launches.
+
+``launch_shape`` picks the kernel's instantiation (vector loads, the row held
+in registers or read twice, the grid) in pure Python, so the CPU tests reach
+it.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["rms_norm", "launches", "DTYPES", "MAX_D"]
+__all__ = ["rms_norm", "launches", "DTYPES", "MAX_D", "PER_LANE", "WARPS",
+           "ROWS_PER_WARP", "MAX_BLOCKS", "LaunchShape", "launch_shape"]
 
 #: dtypes the kernel is instantiated for, for x and (independently) scale.
 DTYPES = (torch.float32, torch.bfloat16)
-#: Widest row: the row is kept in shared memory as f32 (227 KB a block,
-#: less 1 KB for the reduction's own).
+#: Widest row the kernel takes (226 KB of f32, the limit of the earlier
+#: design that staged the row in shared memory, kept so every d runs still).
 MAX_D = 226 * 1024 // 4
+#: 16-byte vectors a lane can hold in registers (the kernel's kV template
+#: instantiations): up to 16 x 32 lanes x 16 bytes, d = 4096 bf16 or 2048 f32.
+PER_LANE = (1, 2, 4, 8, 16)
+#: Warps of a block; each takes one row at a time.
+WARPS = 4
+#: Rows a warp takes in turn, reusing the scale it holds in registers: the
+#: grid has rows / (WARPS * ROWS_PER_WARP) blocks, at most MAX_BLOCKS (132
+#: SMs x 4), past which warps take more rows.  Chosen on an H100 among grids
+#: of 264-1536 blocks at hymba-1.5b's and falcon-mamba-7b's prefill rows.
+ROWS_PER_WARP = 2
+MAX_BLOCKS = 528
 
 #: Kernel launches since import (or since a caller last set it to 0).
 launches = 0
@@ -28,12 +46,29 @@ launches = 0
 _fn = None
 
 
+class LaunchShape(NamedTuple):
+    vec: bool      # 16-byte loads; False: scalar loads
+    per_lane: int  # 16-byte vectors of the row a lane holds; 0: the row is read twice
+    blocks: int    # grid of WARPS-warp blocks
+
+
+def launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True) -> LaunchShape:
+    """The kernel instantiation and grid for ``rows`` rows of ``d`` elements
+    of ``x_dtype``.  ``aligned``: x, scale and out start on 16 bytes."""
+    width = 16 // x_dtype.itemsize
+    vec = aligned and d % width == 0
+    need = math.ceil(d / width / 32)
+    per_lane = next((v for v in PER_LANE if v >= need), 0) if vec else 0
+    return LaunchShape(vec, per_lane,
+                       min(MAX_BLOCKS, math.ceil(rows / (WARPS * ROWS_PER_WARP))))
+
+
 def _kernel():
     global _fn
     if _fn is None:
         lib = ctypes.CDLL(str(_build.build("rms_norm")))
         fn = lib.rms_norm_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.rms_norm_error_string
@@ -71,13 +106,13 @@ def rms_norm(x, scale, *, eps: float = 1e-6):
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
-    width = 16 // x.element_size()  # elements in one 16-byte load
-    vec = d % width == 0 and x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    aligned = not (x.data_ptr() % 16 or scale.data_ptr() % 16 or out.data_ptr() % 16)
+    shape = launch_shape(rows, d, x.dtype, aligned=aligned)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
                  int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-                 int(vec), eps, stream)
+                 int(shape.vec), shape.per_lane, shape.blocks, eps, stream)
     if err:
         raise RuntimeError(f"rms_norm launch failed: {err_str(err).decode()} ({err})")
     launches += 1

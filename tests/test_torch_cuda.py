@@ -24,6 +24,20 @@ CASES = [
     (1, 2, 2, 80, 112, 32, False, 0),
     (4, 14, 2, 512, 512, 64, True, 0),    # qwen2-0.5b prefill
     (1, 2, 1, 33, 47, 128, True, 0),      # hd 128, ragged, Sq != Sk
+    # edges of the bf16 kernel's 64-row query tiles and 64-key tiles
+    (1, 2, 1, 100, 150, 64, True, 0),      # ragged Sq and Sk, Sq < Sk
+    (1, 2, 2, 130, 70, 64, False, 0),      # ragged, Sq > Sk, no mask
+    (2, 4, 2, 65, 65, 64, True, 0),        # one row past a tile
+    (1, 4, 2, 300, 300, 64, True, 100),    # window mid-tile
+    (1, 2, 1, 200, 230, 32, False, 37),    # window without causal, Sq != Sk
+    (1, 10, 2, 128, 128, 64, True, 0),     # GQA group 5
+    (1, 14, 2, 96, 96, 64, True, 0),       # GQA group 7
+    (2, 2, 1, 128, 128, 16, True, 0),      # hd 16
+    (1, 4, 2, 192, 192, 32, True, 0),      # hd 32
+    (1, 2, 1, 160, 200, 128, True, 70),    # hd 128, window, Sq != Sk
+    (2, 3, 1, 40, 40, 64, True, 0),        # one query tile only
+    (1, 2, 2, 1, 77, 64, False, 0),        # a single query row
+    (4, 25, 5, 1536, 1536, 64, True, 1024),  # hymba-1.5b prefill
 ]
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
@@ -55,6 +69,24 @@ def test_kernel_matches_plain_version(cuda, b, h, kh, sq, sk, hd, causal,
     tol = TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_refuses_a_misaligned_view(cuda, dtype):
+    shape = (1, 2, 64, 64)
+    n = 1 * 2 * 64 * 64
+    buf = torch.randn(n + 8, device=cuda).to(dtype)
+    q = buf[1:n + 1].view(shape)  # contiguous, one element off 16 bytes
+    k = v = torch.randn(shape, device=cuda).to(dtype)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = fa.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, k, v)
+    assert fa.launches == before
+    out = fa.flash_attention(q.clone(), k, v)  # the same values, aligned
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.attention_ref(q, k, v).float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
 
 
 def test_auto_attention_takes_the_kernel_on_the_card(cuda):
@@ -128,9 +160,13 @@ def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
 
 # RMSNorm: the sweep of test_kernels.py, the serving shapes (prefill and
 # decode rows of qwen2-0.5b, hymba-1.5b and falcon-mamba-7b), a d that takes
-# the scalar (unvectorised) path, and a row wider than 48 KB of f32.
+# the scalar (unvectorised) path, and a row wider than 48 KB of f32; then the
+# register limit (d 4096: in registers in bf16, read twice in f32), rows past
+# it, ragged rows and 1, 4 and 6144 rows.
 NORM_CASES = [(64, 128), (37, 256), (5, 64), (2048, 896), (6144, 1600), (2048, 4096),
-              (4, 896), (4, 1600), (4, 4096), (9, 1001), (3, 20000)]
+              (4, 896), (4, 1600), (4, 4096), (9, 1001), (3, 20000),
+              (1, 4096), (6144, 4096), (4, 8192), (6144, 4104), (1, 1003), (6144, 1003),
+              (1, 2048), (4, 2052)]
 NORM_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
@@ -148,6 +184,30 @@ def test_norm_kernel_matches_plain_version(cuda, rows, d, dtype):
     tol = NORM_TOL[dtype]
     np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
                                atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(6144, 1600), (4, 4096), (2048, 8192)])
+def test_norm_kernel_scale_dtypes(cuda, rows, d, dtype, scale_dtype):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn(d, generator=g, device=cuda)).to(scale_dtype)
+    out = ops.rms_norm(x, scale, eps=1e-6)
+    want = ref.rms_norm_ref(x, scale, 1e-6)
+    tol = NORM_TOL[dtype]
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=tol, rtol=tol)
+
+
+def test_norm_kernel_unaligned_rows_take_scalar_loads(cuda):
+    buf = torch.randn(4 * 1600 + 8, device=cuda).to(torch.bfloat16)
+    x = buf[1:4 * 1600 + 1].view(4, 1600)
+    scale = 0.1 * torch.randn(1600, device=cuda)
+    out = rn.rms_norm(x, scale)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.rms_norm_ref(x, scale).float().cpu().numpy(),
+                               atol=2e-2, rtol=2e-2)
 
 
 def test_auto_takes_the_scan_and_norm_kernels_on_the_card(cuda):
