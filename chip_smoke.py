@@ -9,7 +9,8 @@ Phases, all run in order, each of which must pass:
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the shape sweeps of ``tests/test_kernels.py`` in f32 and
                bf16, the edges of the bf16 tensor-core attention kernel, plus
-               the shapes the serving paths give it;
+               the shapes the serving paths give it (the scan there in f32
+               too);
   3. small   — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at ``reduced()``
                in f32: the card's engine (through the kernels) against the
                CPU engine (plain versions), the hymba ring cache wrapped; then
@@ -30,7 +31,9 @@ Phases, all run in order, each of which must pass:
   5. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
-               the mask admits and the f32 kernel's time, the norm row its
+               the mask admits and the f32 kernel's time, the scan row the
+               time of its earlier design (built from ``kernels/baselines/``
+               and timed in the same run) and its f32 error, the norm row its
                decode-row times), the
                card's name and power limit, and last the
                ``{"ok": true, "device": ...}`` line.
@@ -376,34 +379,19 @@ def phase_build():
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as fa
 
+    kernels = _build.names()
+    if kernels != ["flash_attention", "rms_norm", "selective_scan"]:
+        raise AssertionError(f"unexpected kernel set {kernels}")
     t0 = time.perf_counter()
-    libs = _build.build_all()
+    # the scan's earlier design too, built only to time the current one against
+    libs = _build.build_all(kernels + ["selective_scan_per_channel"])
     log(f"[build] {len(libs)} kernel(s) in {time.perf_counter() - t0:.1f}s")
     for name, lib in libs.items():
         log(f"[build] {name}: {lib.name}; ptxas, per entry function:")
-        for fn, info in ptxas_report(lib.with_suffix(".log").read_text()):
+        for fn, info in _build.ptxas_report(lib.with_suffix(".log").read_text()):
             log(f"[build]   {fn}: {info}")
     log("[build] flash_attention bf16 dynamic shared memory per block: "
         + ", ".join(f"hd {hd}: {fa.tc_smem_bytes(hd)} B" for hd in fa.HEAD_DIMS))
-    if sorted(libs) != ["flash_attention", "rms_norm", "selective_scan"]:
-        raise AssertionError(f"unexpected kernel set {sorted(libs)}")
-
-
-def ptxas_report(text: str) -> list:
-    """[(entry function, 'registers, shared memory, spills')] from the
-    ``nvcc -Xptxas -v`` report of one library."""
-    out, fn, info = [], None, []
-    for ln in text.splitlines():
-        ln = ln.strip()
-        if "Compiling entry function" in ln:
-            if fn:
-                out.append((fn, "; ".join(info)))
-            fn, info = ln.split("'")[1][:90], []
-        elif fn and ("spill" in ln or "registers" in ln):
-            info.append(ln.replace("ptxas info    : ", ""))
-    if fn:
-        out.append((fn, "; ".join(info)))
-    return out
 
 
 def _agree(name, label, got, want, dtype) -> float:
@@ -441,13 +429,17 @@ def phase_kernels():
                 q, k, v, causal=causal, window=window)], [ref.attention_ref(
                     q, k, v, causal=causal, window=window)], dtype)
             note("flash_attention", "serve" if serve else str(dtype)[6:], err)
+    # K3 in both dtypes at every shape: in f32 the serving shapes check the
+    # order of summation of the lanes' reduce-scatter at 1e-4.
     for shape in SCAN_SWEEP + [SCAN_HYMBA, SCAN_FALCON]:
         serve = shape in (SCAN_HYMBA, SCAN_FALCON)
-        for dtype in [torch.bfloat16] if serve else list(TOL["selective_scan"]):
+        for dtype in TOL["selective_scan"]:
             args = scan_inputs(shape, dtype)
             err = _agree("selective_scan", str(shape), ss.selective_scan(*args),
                          ref.selective_scan_ref(*args), dtype)
-            note("selective_scan", "serve" if serve else str(dtype)[6:], err)
+            key = ("serve" if dtype == torch.bfloat16 else "serve_f32") if serve \
+                else str(dtype)[6:]
+            note("selective_scan", key, err)
     for shape in NORM_SWEEP + NORM_SERVE:
         serve = shape in NORM_SERVE
         for dtype in TOL["rms_norm"]:
@@ -810,9 +802,11 @@ def phase_report(launches: dict, worst: dict) -> list:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import scan_variants
     from repro_torch.kernels import selective_scan as ss
 
     clock_hz = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     rows = []
 
     def attn_times(shape):
@@ -865,15 +859,20 @@ def phase_report(launches: dict, worst: dict) -> list:
 
     def scan_times(shape):
         args = scan_inputs(shape, torch.bfloat16)
+        # the earlier one-thread-per-channel design, timed beside the kernel
+        earlier = scan_variants.per_channel(args)
+        err = max((g - w).abs().max().item()
+                  for g, w in zip(earlier(), ref.selective_scan_ref(*args)))
+        if err > TOL["selective_scan"][torch.bfloat16]:
+            raise AssertionError(f"earlier scan kernel {shape}: max_abs_err {err:.3e}")
+        g = time_calls({"kernel": lambda: ss.selective_scan(*args), "earlier": earlier})["graph"]
         # the plain version is ~7 launches per timestep: fewer calls per graph
-        t = {"kernel": time_calls({"kernel": lambda: ss.selective_scan(*args)})["graph"]
-             ["kernel"],
-             "plain": graph_ms(lambda: ref.selective_scan_ref(*args), iters=2, repeats=3,
-                               warmup=1)}
+        t = {**g, "plain": graph_ms(lambda: ref.selective_scan_ref(*args), iters=2, repeats=3,
+                                    warmup=1)}
         bound_ms, bound_by, parts = scan_bound(args[0], args[2], clock_hz)
         log(f"[report] selective_scan {shape} bf16 ms per call: {t}; bound "
             f"{bound_ms:.4f} ({bound_by}; parts {parts}, max SM clock {clock_hz / 1e6:.0f} "
-            f"MHz); grid {math.ceil(shape[2] / 128) * shape[0]} blocks of 128 threads")
+            f"MHz); {ss.launch_plan(*shape, sms=sms)}; earlier design's max_abs_err {err:.3e}")
         return t, bound_ms, bound_by
 
     sh, sh_bound, sh_by = scan_times(SCAN_HYMBA)
@@ -887,13 +886,18 @@ def phase_report(launches: dict, worst: dict) -> list:
         "launches_by_path": launches["selective_scan"],
         "max_abs_err": worst["selective_scan"]["serve"],
         "tolerance": TOL["selective_scan"][torch.bfloat16],
-        "sweep_max_abs_err": {k: v for k, v in worst["selective_scan"].items() if k != "serve"},
+        "sweep_max_abs_err": {k: v for k, v in worst["selective_scan"].items()
+                              if not k.startswith("serve")},
         "ms": sh["kernel"], "kernel_ms": sh["kernel"], "plain_ms": sh["plain"],
         "bound_ms": sh_bound, "bound_by": sh_by,
         "library_ms": None,  # no PyTorch call computes a selective scan
+        "earlier_ms": sh["earlier"],
+        "f32_max_abs_err": worst["selective_scan"]["serve_f32"],
+        "f32_tolerance": TOL["selective_scan"][torch.float32],
         "falcon_shape": {"shape": "u/dt [4,512,8192] B/C [4,512,16] bf16",
                          "kernel_ms": sf["kernel"], "plain_ms": sf["plain"],
-                         "bound_ms": sf_bound, "bound_by": sf_by, "library_ms": None},
+                         "bound_ms": sf_bound, "bound_by": sf_by, "library_ms": None,
+                         "earlier_ms": sf["earlier"]},
     })
 
     def norm_times(shape):

@@ -3,8 +3,10 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled for
 ``sm_90a`` at first use into its own library under
 ``build/repro_torch_kernels/`` at the root of the checkout (listed in
-``.gitignore``).  A library's file name carries a hash of its source and
-flags, so a stale library is never loaded.  The wrappers load the results
+``.gitignore``).  ``baselines/<name>.cu`` holds an earlier design of a
+kernel, built the same way only to time the current one against.  A
+library's file name carries a hash of its source and flags, so a stale
+library is never loaded.  The wrappers load the results
 with ``ctypes``.  ``build_all`` starts one nvcc per source at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -18,9 +20,11 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BUILD_DIR", "names", "library_path", "build", "build_all"]
+__all__ = ["CSRC", "BASELINES", "BUILD_DIR", "names", "source", "library_path", "build",
+           "build_all", "ptxas_report"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+BASELINES = Path(__file__).resolve().parent / "baselines"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,16 +48,23 @@ def names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def source(name: str) -> Path:
+    """``csrc/<name>.cu``, else ``baselines/<name>.cu``."""
+    path = CSRC / f"{name}.cu"
+    return path if path.exists() else BASELINES / f"{name}.cu"
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from the current ``csrc/<name>.cu`` lives."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where the library built from the current source of ``name`` lives."""
+    h = hashlib.sha256(source(name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(kernels: list[str] | None = None) -> dict[str, Path]:
-    """Build each named kernel (default: all) unless a library built from the
-    same source exists, one nvcc per source, all started together.  Returns
+    """Build each named kernel (default: every one under ``csrc/``) unless a
+    library built from the same source exists, one nvcc per source, all
+    started together.  Returns
     ``{name: library path}``.  Each compiler report (registers, shared
     memory, spills) is kept beside its library as ``.log``.  Raises with the
     compiler's output if a build fails."""
@@ -66,7 +77,7 @@ def build_all(kernels: list[str] | None = None) -> dict[str, Path]:
             continue
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source(name))],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp)
     failed = []
@@ -87,3 +98,28 @@ def build_all(kernels: list[str] | None = None) -> dict[str, Path]:
 def build(name: str) -> Path:
     """Build one kernel's library (see ``build_all``) and return its path."""
     return build_all([name])[name]
+
+
+def ptxas_report(text: str) -> list[tuple[str, str]]:
+    """[(entry function, 'registers, shared memory, spills')] from the
+    ``nvcc -Xptxas -v`` report of one library.  Entry functions are
+    demangled to ``name<template arguments>`` where ``c++filt`` exists."""
+    out, fn, info = [], None, []
+    for ln in text.splitlines():
+        ln = ln.strip()
+        if "Compiling entry function" in ln:
+            if fn:
+                out.append((fn, "; ".join(info)))
+            fn, info = ln.split("'")[1], []
+        elif fn and ("spill" in ln or "registers" in ln):
+            info.append(ln.replace("ptxas info    : ", ""))
+    if fn:
+        out.append((fn, "; ".join(info)))
+    tool = shutil.which("c++filt")
+    if tool is None or not out:
+        return [(fn[:90], info) for fn, info in out]
+    names = subprocess.run([tool], input="\n".join(fn for fn, _ in out), text=True,
+                           capture_output=True, check=True).stdout.splitlines()
+    short = [n.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+             for n in names]
+    return [(name, info) for name, (_, info) in zip(short, out)]

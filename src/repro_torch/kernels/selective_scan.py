@@ -5,25 +5,96 @@ TPU kernel ``repro/kernels/selective_scan.py::selective_scan_kernel``.  It
 launches on PyTorch's current stream, allocates nothing and does not
 synchronise; this wrapper validates the inputs, allocates the outputs and
 raises if the launch is refused.  ``launches`` counts successful launches.
+
+``launch_plan`` picks the kernel's plan for a shape (lanes per channel,
+channels per block, the grid and the shared memory) in pure Python, so the
+CPU tests reach it.
 """
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["selective_scan", "launches", "STATES", "DTYPES"]
+__all__ = ["selective_scan", "launches", "STATES", "DTYPES", "CHUNK", "THREADS", "SMS",
+           "PLANS", "ScanPlan", "launch_plan", "plan_fits", "block_channels", "smem_bytes"]
 
 #: State sizes N and input dtypes the kernel is instantiated for.
 STATES = (4, 8, 16)
 DTYPES = (torch.float32, torch.bfloat16)
+#: Timesteps the kernel stages per round (``kChunk`` in the source).
+CHUNK = 64
+#: Threads of a block: 128 / L groups of L lanes.
+THREADS = 128
+#: SMs of an H100 SXM, for a plan asked for without a device.
+SMS = 132
+#: The plans the kernel is instantiated for (``picked`` in the source), as
+#: (L, K) by N: L lanes share K channels, N / L states of each.  The first
+#: is taken where its grid has a block for every SM, else the second, whose
+#: blocks hold half the channels.  On an H100 (4, 2) is the fastest of the
+#: 12 plans at both serving shapes, and (8, 2) the fastest, or within 5% of
+#: it, where (4, 2) leaves SMs idle: hymba-1.5b's shape at a batch of 1 or
+#: 2, falcon-mamba-7b's at 1 (PERF.md §6).  N = 8 and 4 are not timed; they
+#: keep K = 2 and the same step of L.
+PLANS = {16: ((4, 2), (8, 2)), 8: ((2, 2), (4, 2)), 4: ((2, 2), (4, 2))}
 
 #: Kernel launches since import (or since a caller last set it to 0).
 launches = 0
 
 _fn = None
+_sms = {}
+
+
+class ScanPlan(NamedTuple):
+    lanes: int       # L: lanes that share a group of channels, N / L states each
+    per_lane: int    # K: channels of a group
+    channels: int    # channels of a block: THREADS / L * K
+    grid: tuple      # (ceil(DI / channels), B) blocks of THREADS threads
+    smem_bytes: int  # dynamic shared memory of a block
+    vec: bool        # 16-byte copies; False: plain loads
+
+
+def block_channels(lanes: int, per_lane: int) -> int:
+    return THREADS // lanes * per_lane
+
+
+def plan_fits(n: int, lanes: int, per_lane: int) -> bool:
+    """Whether the kernel's code takes this (N, L, K) (``plan_fits`` in the
+    source): L divides N, at most 16 states a lane and 128 channels a
+    block.  Only ``PLANS`` are instantiated."""
+    return (lanes in (1, 2, 4, 8, 16) and per_lane in (1, 2, 4) and n % lanes == 0
+            and per_lane * (n // lanes) <= 16 and block_channels(lanes, per_lane) <= 128)
+
+
+def smem_bytes(channels: int, n: int, itemsize: int) -> int:
+    """A block's dynamic shared memory (``smem_bytes`` in the source): B, C
+    widened to f32 [CHUNK][N], then two stages of u, dt [CHUNK][channels] and
+    B, C [CHUNK][N] in the input dtype."""
+    return 2 * CHUNK * n * 4 + 2 * 2 * CHUNK * (channels + n) * itemsize
+
+
+def launch_plan(bsz: int, seq: int, di: int, n: int, dtype=torch.bfloat16, *,
+                aligned: bool = True, sms: int = SMS) -> ScanPlan:
+    """The kernel's plan for u [bsz, seq, di] of ``dtype`` and N = ``n``
+    states on a card of ``sms`` SMs.  ``aligned``: u, dt, b and c start on
+    16 bytes.  Raises ValueError on a shape the kernel does not take."""
+    if n not in STATES:
+        raise ValueError(f"state size {n} not in {STATES}")
+    if dtype not in DTYPES:
+        raise ValueError(f"dtype {dtype} not in {DTYPES}")
+    if min(bsz, seq, di) <= 0 or bsz > 65535 or max(seq, di) >= 2**31:
+        raise ValueError(f"unsupported shape B={bsz} S={seq} DI={di}")
+    full, small = PLANS[n]
+    lanes, per_lane = full if math.ceil(di / block_channels(*full)) * bsz >= sms else small
+    channels = block_channels(lanes, per_lane)
+    width = 16 // dtype.itemsize
+    vec = aligned and di % width == 0 and seq * n % width == 0
+    return ScanPlan(lanes, per_lane, channels, (math.ceil(di / channels), bsz),
+                    smem_bytes(channels, n, dtype.itemsize), vec)
 
 
 def _kernel():
@@ -31,13 +102,19 @@ def _kernel():
     if _fn is None:
         lib = ctypes.CDLL(str(_build.build("selective_scan")))
         fn = lib.selective_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.selective_scan_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _fn = (fn, err)
     return _fn
+
+
+def _device_sms(device) -> int:
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device.index]
 
 
 def _check(u, dt, a, b_ssm, c_ssm, d_skip):
@@ -62,15 +139,13 @@ def _check(u, dt, a, b_ssm, c_ssm, d_skip):
     if a.dim() != 2 or a.shape[0] != di:
         raise ValueError(f"a must be [DI={di}, N], got {tuple(a.shape)}")
     n = a.shape[1]
-    if n not in STATES:
-        raise ValueError(f"state size {n} not in {STATES}")
     if dt.shape != u.shape or b_ssm.shape != (bsz, s, n) or c_ssm.shape != (bsz, s, n) \
             or d_skip.shape != (di,):
         raise ValueError(
             f"shapes do not fit: u {tuple(u.shape)} dt {tuple(dt.shape)} a {tuple(a.shape)} "
             f"b {tuple(b_ssm.shape)} c {tuple(c_ssm.shape)} d_skip {tuple(d_skip.shape)}")
-    if min(bsz, s, di) == 0 or bsz > 65535 or max(s, di) >= 2**31:
-        raise ValueError(f"unsupported shape u {tuple(u.shape)}")
+    aligned = all(t.data_ptr() % 16 == 0 for t in (u, dt, b_ssm, c_ssm))
+    return launch_plan(bsz, s, di, n, u.dtype, aligned=aligned, sms=_device_sms(u.device))
 
 
 def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
@@ -78,7 +153,7 @@ def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
     [DI, N] and d_skip [DI] in f32; all contiguous on one CUDA device.
     Starts from h=0.  Returns (y [B, S, DI] f32, h_last [B, DI, N] f32)."""
     global launches
-    _check(u, dt, a, b_ssm, c_ssm, d_skip)
+    plan = _check(u, dt, a, b_ssm, c_ssm, d_skip)
     fn, err_str = _kernel()
     bsz, s, di = u.shape
     n = a.shape[1]
@@ -88,7 +163,8 @@ def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b_ssm.data_ptr(),
                  c_ssm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                 bsz, s, di, n, int(u.dtype == torch.bfloat16), stream)
+                 bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
+                 int(u.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(
             f"selective_scan launch failed: {err_str(err).decode()} ({err})")

@@ -144,10 +144,7 @@ def _scan_inputs(b, s, di, n, dtype, device, seed=7):
     return [u.to(dtype), dt.to(dtype), a, bm.to(dtype), cm.to(dtype), d]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,di,n", SCAN_CASES)
-def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
-    args = _scan_inputs(b, s, di, n, dtype, cuda)
+def _scan_agrees(args, dtype):
     before = ss.launches
     y, h = ops.selective_scan(*args)
     torch.cuda.synchronize()
@@ -156,6 +153,99 @@ def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
     tol = SCAN_TOL[dtype]
     for got, want in ((y, want_y), (h, want_h)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", SCAN_CASES)
+def test_scan_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
+    _scan_agrees(_scan_inputs(b, s, di, n, dtype, cuda), dtype)
+
+
+# Edges of the lanes-per-channel design (launch_plan: L lanes share K
+# channels, 128 / L * K channels a block, 64-step chunks, 16-byte copies
+# where aligned, y stored K values at a time where DI allows).
+SCAN_EDGES = [
+    (1, 1, 64, 16),      # S = 1
+    (2, 45, 96, 16),     # S no multiple of the chunk or of L
+    (3, 65, 48, 8),      # one step past a chunk
+    (2, 40, 4, 16),      # DI under a block's 32 channels; bf16 rows unaligned
+    (1, 70, 100, 8),     # DI no multiple of a block's 64 channels
+    (2, 64, 20, 4),      # N = 4 at L = 4, DI under a block's 64 channels
+    (1, 31, 24, 4),      # N = 4, odd S: bf16 B/C rows unaligned, plain loads
+    (4, 96, 3200, 16),   # hymba-1.5b's DI: L = 4, K = 2
+    (4, 70, 3199, 16),   # K = 2 with an odd DI: the last group half live
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", SCAN_EDGES)
+def test_scan_kernel_edges(cuda, b, s, di, n, dtype):
+    _scan_agrees(_scan_inputs(b, s, di, n, dtype, cuda), dtype)
+
+
+# Each instantiated plan (ss.PLANS), reached by shape: a grid that fills the
+# card takes the first plan of its N, a small one the second.
+SCAN_PLANS = [(n, i) for n in ss.STATES for i in range(2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,which", SCAN_PLANS)
+def test_scan_kernel_every_plan(cuda, n, which, dtype):
+    args = _scan_inputs(*((8, 70, 4000, n) if which == 0 else (2, 70, 200, n)), dtype, cuda)
+    plan = ss._check(*args)
+    assert (plan.lanes, plan.per_lane) == ss.PLANS[n][which]
+    _scan_agrees(args, dtype)
+
+
+def test_scan_plan_of_the_edges(cuda):
+    assert ss.launch_plan(2, 64, 20, 4).lanes == 4       # the most N = 4 allows
+    assert ss.launch_plan(2, 40, 4, 16, torch.bfloat16).vec is False
+    assert ss.launch_plan(1, 31, 24, 4, torch.bfloat16).vec is False
+    assert ss.launch_plan(1, 31, 24, 4, torch.float32).vec is True
+    assert ss.launch_plan(4, 70, 3199, 16)[:2] == (4, 2)
+
+
+def test_scan_kernel_f32_at_hymba_shape(cuda):
+    _scan_agrees(_scan_inputs(4, 1536, 3200, 16, torch.float32, cuda), torch.float32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt_scale,dt_shift,s", [
+    (1e-3, 0.0, 4096),   # decays near 1 over a long S: h sums thousands of steps
+    (1.0, 20.0, 300),    # decays near 0: h forgets at every step
+])
+def test_scan_kernel_extreme_decays(cuda, dt_scale, dt_shift, s, dtype):
+    args = _scan_inputs(2, s, 64, 16, torch.float32, cuda)
+    args[1] = args[1] * dt_scale + dt_shift
+    args = [t.to(dtype) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+    _scan_agrees(args, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_misaligned_views(cuda, dtype):
+    args = _scan_inputs(2, 64, 256, 16, dtype, cuda)
+    buf = torch.empty(args[0].numel() + 8, dtype=dtype, device=cuda)
+    u = buf[1:args[0].numel() + 1].view(args[0].shape)
+    u.copy_(args[0])  # contiguous, one element off 16 bytes: plain loads
+    assert u.data_ptr() % 16 and not ss._check(u, *args[1:]).vec
+    _scan_agrees([u, *args[1:]], dtype)
+
+
+def test_scan_wrapper_raises_where_the_plan_refuses(cuda):
+    args = _scan_inputs(2, 8, 16, 4, torch.float32, cuda)
+    wide = [torch.zeros(65536, 1, 16, device=cuda), torch.zeros(65536, 1, 16, device=cuda),
+            args[2], torch.zeros(65536, 1, 4, device=cuda),
+            torch.zeros(65536, 1, 4, device=cuda), args[5]]
+    with pytest.raises(ValueError):
+        ss.launch_plan(65536, 1, 16, 4, torch.float32)
+    before = ss.launches
+    with pytest.raises(ValueError, match="unsupported shape"):
+        ss.selective_scan(*wide)
+    a2 = args[2][:, :2].contiguous()  # N = 2: no instantiation
+    with pytest.raises(ValueError, match="state size"):
+        ss.selective_scan(args[0], args[1], a2, args[3][..., :2].contiguous(),
+                          args[4][..., :2].contiguous(), args[5])
+    assert ss.launches == before
 
 
 # RMSNorm: the sweep of test_kernels.py, the serving shapes (prefill and

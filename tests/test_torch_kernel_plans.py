@@ -3,8 +3,10 @@
 The CUDA kernels cannot run here, but the arithmetic that decides what they
 touch is mirrored in their wrappers: the bf16 flash-attention kernel's key
 range per 64-row query tile and its mask test (``csrc/flash_attention.cu``
-``key_tile_range``/``tile_needs_mask``), and the RMSNorm kernel's
-instantiation (``rmsnorm.launch_shape``).  These tests hold the mirrors
+``key_tile_range``/``tile_needs_mask``), the RMSNorm kernel's
+instantiation (``rmsnorm.launch_shape``) and the selective-scan kernel's
+plan (``selective_scan.launch_plan``: lanes per channel, channels per block,
+grid, shared memory).  These tests hold the mirrors
 against the mask and the widths they must cover.
 """
 import numpy as np
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels import selective_scan as ss
 
 pytest.importorskip("hypothesis")
 from hypothesis import given, settings, strategies as st  # noqa: E402
@@ -117,3 +120,107 @@ def test_launch_shape_grid(rows, blocks):
 
 def test_launch_shape_unaligned_takes_scalar_loads():
     assert rn.launch_shape(4, 4096, torch.bfloat16, aligned=False) == (False, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# Selective scan: ``selective_scan.launch_plan`` against the kernel's mapping
+# of threads to (b, d, n) and of lanes to the timesteps whose y they write.
+# ---------------------------------------------------------------------------
+
+def _owners(plan, di, n):
+    """[di, n] int: how many lanes of a batch row's blocks hold each state,
+    as the kernel maps them: thread tid of block (bx, b) is lane tid % L of
+    group tid // L, which holds channels bx * channels + group * K + k
+    (k < K) and states lane * N / L + p (p < N / L) of each; blocks (., b)
+    work on batch row b alone."""
+    per = n // plan.lanes
+    bx, tid, k, p = np.meshgrid(np.arange(plan.grid[0]), np.arange(ss.THREADS),
+                                np.arange(plan.per_lane), np.arange(per), indexing="ij")
+    d = bx * plan.channels + tid // plan.lanes * plan.per_lane + k
+    state = tid % plan.lanes * per + p
+    live = d < di
+    return np.bincount((d * n + state)[live], minlength=di * n).reshape(di, n)
+
+
+@settings(max_examples=60, deadline=None)
+@given(bsz=st.integers(1, 8), seq=st.integers(1, 4096), di=st.integers(1, 16384),
+       n=st.sampled_from(ss.STATES), dtype=st.sampled_from(ss.DTYPES),
+       aligned=st.booleans(), sms=st.integers(1, 200))
+def test_scan_plan_gives_every_state_one_lane(bsz, seq, di, n, dtype, aligned, sms):
+    plan = ss.launch_plan(bsz, seq, di, n, dtype, aligned=aligned, sms=sms)
+    assert (plan.lanes, plan.per_lane) in ss.PLANS[n]
+    assert ss.plan_fits(n, plan.lanes, plan.per_lane) and n % plan.lanes == 0
+    assert plan.per_lane * n // plan.lanes <= 16   # states a lane holds
+    assert plan.channels == ss.THREADS // plan.lanes * plan.per_lane
+    assert plan.channels % 8 == 0                  # whole 16-byte vectors of bf16
+    assert plan.grid == (-(-di // plan.channels), bsz)
+    assert plan.smem_bytes == ss.smem_bytes(plan.channels, n, dtype.itemsize)
+    assert plan.smem_bytes <= 227 * 1024           # an H100 block's shared memory
+    width = 16 // dtype.itemsize
+    assert plan.vec == (aligned and di % width == 0 and seq * n % width == 0)
+    assert (_owners(plan, di, n) == 1).all()
+
+
+@pytest.mark.parametrize("n", ss.STATES)
+def test_scan_every_instantiated_plan_fits_a_block(n):
+    full, small = ss.PLANS[n]
+    assert full != small and all(ss.plan_fits(n, *p) for p in (full, small))
+    for dtype in ss.DTYPES:
+        for sms, want in ((1, full), (10**6, small)):
+            plan = ss.launch_plan(3, 100, 1000, n, dtype, sms=sms)
+            assert (plan.lanes, plan.per_lane) == want
+            assert plan.smem_bytes <= 227 * 1024
+            assert (_owners(plan, 1000, n) == 1).all()
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((1, 1536, 3200, 16), (8, 2, 32)),   # hymba-1.5b, batch 1: 50 blocks of 64 channels
+    ((2, 1536, 3200, 16), (8, 2, 32)),   # batch 2: 100
+    ((1, 512, 8192, 16), (8, 2, 32)),    # falcon-mamba-7b, batch 1: 128
+    ((2, 40, 4, 16), (8, 2, 32)),
+    ((1, 70, 100, 8), (4, 2, 64)),
+    ((2, 64, 20, 4), (4, 2, 64)),
+])
+def test_scan_plan_small_grids_take_the_smallest_blocks(shape, plan):
+    # a grid of the first plan with fewer blocks than SMs takes the second,
+    # whose blocks hold half the channels
+    assert ss.launch_plan(*shape)[:3] == plan
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((4, 1536, 3200, 16), (4, 2, 64, (50, 4), 49152, True)),    # hymba-1.5b prefill
+    ((4, 512, 8192, 16), (4, 2, 64, (128, 4), 49152, True)),    # falcon-mamba-7b prefill
+])
+def test_scan_plan_at_serving_shapes(shape, plan):
+    # 8 states a lane, 4 of each of 2 channels; a block for every SM
+    got = ss.launch_plan(*shape)
+    assert tuple(got) == plan
+    assert got.per_lane * 16 // got.lanes == 8
+    assert got.grid[0] * got.grid[1] >= ss.SMS
+
+
+@pytest.mark.parametrize("sms,lanes", [(132, 8), (128, 4), (114, 4), (1, 4)])
+def test_scan_plan_follows_the_cards_sm_count(sms, lanes):
+    # falcon-mamba-7b at batch 1 has 128 blocks of 64 channels: enough for
+    # a card of 128 SMs or fewer (an H100 PCIe has 114), not for 132
+    assert ss.launch_plan(1, 512, 8192, 16, sms=sms).lanes == lanes
+
+
+@pytest.mark.parametrize("n,lanes,per_lane", [(16, 4, 2), (8, 2, 2), (4, 2, 2)])
+def test_scan_plan_holds_eight_states_a_lane(n, lanes, per_lane):
+    # N = 16 and 8: 8 states a lane; N = 4 keeps 128 channels a block
+    plan = ss.launch_plan(4, 512, 8192, n)
+    assert (plan.lanes, plan.per_lane) == (lanes, per_lane)
+
+
+@pytest.mark.parametrize("bsz,seq,di,n,dtype", [
+    (1, 8, 8, 2, torch.float32),          # N not instantiated
+    (1, 8, 8, 32, torch.float32),
+    (65536, 1, 8, 4, torch.float32),      # past the grid's y limit
+    (1, 0, 8, 4, torch.float32),          # empty
+    (1, 8, 0, 4, torch.float32),
+    (1, 8, 8, 4, torch.float16),          # dtype not instantiated
+])
+def test_scan_plan_refuses(bsz, seq, di, n, dtype):
+    with pytest.raises(ValueError):
+        ss.launch_plan(bsz, seq, di, n, dtype)
