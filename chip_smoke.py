@@ -28,7 +28,23 @@ Phases, all run in order, each of which must pass:
                engine while planted kernel faults must not; in bf16 the
                kernels must drift from the f32 run no further than twice
                what the plain versions drift;
-  5. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
+  5. train_small — each CNN surrogate at ``reduced()`` in f32 (TF32 off):
+               five training steps through the launcher's code path on the
+               card follow the same run on the CPU, in per-step loss and
+               final params, within ``TRAIN_SMALL_LIMIT``; three faults
+               planted by patching the model module ((1, 1) padding at n=16,
+               a transposed conv without the flip, an NCDHW flatten) must
+               land above it;
+  6. train   — each surrogate at full width (``TRAIN``), naive then solar,
+               over a synthetic binary store on local disk, through
+               ``launch.train_surrogate``: the loss is finite and falls,
+               every step weighs the global batch, solar's and naive's
+               gradients agree at the first steps (paper Eq. 3), and a
+               checkpoint at step k resumes into the same step ids.  No
+               hand-written kernel lies on this path: the launch counts,
+               set to 0 before each run, must read 0 after it.  Prints a
+               ``{"train": [...]}`` line of step, load and loader readings;
+  7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
                the mask admits and the f32 kernel's time, the scan row the
@@ -44,6 +60,7 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -141,6 +158,40 @@ SMALL_TOL = 1e-4
 # limit sits 3x above the gap and 2x below the smallest fault (PERF.md §6).
 SMALL_BF16 = [("qwen2-0.5b", 4, 512), ("hymba-1.5b", 4, 1536)]
 SMALL_BF16_ATOL = 0.15
+
+# Surrogate training, card against CPU at reduced() in f32 with TF32 off:
+# the drift is the larger of the per-step losses' relative difference and
+# the final params' relative L2 difference after TRAIN_SMALL_STEPS solar
+# steps.  Both runs take the same batches from the same plan and start from
+# the same params, so only the f32 order of the convolutions' sums differs
+# (~1e-6 relative, tests/test_torch_cnn.py); one Adam step can turn an
+# element whose gradient is that close to 0 the other way, which moves the
+# params' L2 by ~2e-4 relative.  A planted fault changes every step.
+TRAIN_SMALL_STEPS = 5
+TRAIN_SMALL_LIMIT = 1e-3
+# Faults planted in the card's run, and the surrogates each one reaches.
+TRAIN_FAULTS = {
+    "pad (1, 1) at n=16": ("ptychonn", "autophasenn", "cosmoflow"),
+    "conv transpose without the flip": ("ptychonn", "autophasenn"),
+    "NCDHW flatten": ("cosmoflow",),
+}
+# Full-width training: (arch, samples, nodes, local batch, buffer, steps).
+# Samples are 16 KiB (ptychonn 64x64x1), 128 KiB (autophasenn 32^3x1) and
+# 4 MiB (cosmoflow 64^3x4) of f32.
+TRAIN = [
+    ("ptychonn", 8192, 4, 16, 2048, 200),
+    ("autophasenn", 2048, 4, 8, 256, 100),
+    ("cosmoflow", 512, 4, 4, 64, 50),
+]
+# solar's and naive's weighted-sum gradients at the first steps: the same
+# global batch in another row order, f32 sums over up to 64 rows and every
+# spatial position; limit on max |diff| over the leaf's max |g|.
+TRAIN_GRAD_STEPS = 3
+TRAIN_GRAD_TOL = 1e-4
+# the resume check: checkpoint at step k, resume, train k more steps; their
+# losses against the uninterrupted run's (cuDNN may sum in another order).
+TRAIN_RESUME_AT = 5
+TRAIN_RESUME_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -941,6 +992,260 @@ def phase_report(launches: dict, worst: dict) -> list:
     return rows
 
 
+def _train_args(arch, nodes, local_batch, buffer, steps, epochs):
+    from repro_torch.launch import train_surrogate
+
+    return train_surrogate.build_parser().parse_args([
+        "--arch", arch, "--nodes", str(nodes), "--local-batch", str(local_batch),
+        "--buffer", str(buffer), "--steps", str(steps), "--epochs", str(epochs)])
+
+
+@contextlib.contextmanager
+def planted(fault: str | None):
+    """Patch one fault into ``repro_torch.models.cnn`` for the block."""
+    from repro_torch.models import cnn
+
+    saved = {name: getattr(cnn, name) for name in ("same_pads", "_conv_transpose", "_flatten")}
+    if fault == "pad (1, 1) at n=16":
+        cnn.same_pads = lambda n, *a: (1, 1) if n == 16 else saved["same_pads"](n, *a)
+    elif fault == "conv transpose without the flip":
+        cnn._conv_transpose = lambda x, w, b, rank: saved["_conv_transpose"](
+            x, w.flip(tuple(range(2, rank + 2))), b, rank)
+    elif fault == "NCDHW flatten":
+        cnn._flatten = lambda h, rank: h.reshape(h.shape[0], -1)
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(cnn, name, fn)
+
+
+def phase_train_small():
+    """Each surrogate at reduced() in f32: TRAIN_SMALL_STEPS solar steps on
+    the card against the CPU; the planted faults must exceed the limit."""
+    import tempfile
+
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.launch import train_surrogate
+    from repro_torch.models import cnn
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_small_") as tmp:
+        for arch in ("ptychonn", "autophasenn", "cosmoflow"):
+            cfg = SURROGATES[arch].reduced()
+            args = _train_args(arch, 2, 4, 16, TRAIN_SMALL_STEPS, 1)
+            args.num_workers = 2
+            store = train_surrogate.make_store(cfg, f"{tmp}/{arch}.bin", "binary", 64)
+            init = cnn.init_surrogate(cfg, generator=torch.Generator().manual_seed(1),
+                                      device="cpu")
+
+            def run(dev, fault=None):
+                params = {k: v.to(dev) for k, v in init.items()}
+                with planted(fault):
+                    t = train_surrogate.train_loader(cfg, store, "solar", args, dev,
+                                                     params=params)
+                return ([m["loss"] for m in t.metrics_history],
+                        {k: v.cpu().double() for k, v in t.state["params"].items()})
+
+            try:
+                want = run("cpu")
+                reset_counts()
+                got = run("cuda")
+                counts = read_counts()
+
+                def drift(run_):
+                    (la, pa), (lb, pb) = run_, want
+                    loss = max(abs(a - b) / abs(b) for a, b in zip(la, lb))
+                    num = math.sqrt(sum(float(((pa[k] - pb[k]) ** 2).sum()) for k in pb))
+                    den = math.sqrt(sum(float((pb[k] ** 2).sum()) for k in pb))
+                    return max(loss, num / den), loss, num / den
+
+                d, dl, dp = drift(got)
+                faults = {f: drift(run("cuda", f))[0]
+                          for f, archs in TRAIN_FAULTS.items() if arch in archs}
+            finally:
+                store.close()
+            log(f"[train_small] {arch} reduced f32, {TRAIN_SMALL_STEPS} solar steps, "
+                f"card vs cpu: drift {d:.3e} (loss {dl:.3e}, params {dp:.3e}; limit "
+                f"{TRAIN_SMALL_LIMIT:g}); planted faults "
+                f"{ {k: float(f'{v:.4g}') for k, v in faults.items()} } (each must exceed "
+                f"the limit); losses {[round(v, 6) for v in got[0]]}; launches {counts}")
+            if len(got[0]) != TRAIN_SMALL_STEPS or not all(map(math.isfinite, got[0])):
+                raise AssertionError(f"{arch}: the card's small run did not finish")
+            if not d <= TRAIN_SMALL_LIMIT:
+                raise AssertionError(f"{arch}: the card's training drifts {d:.3e} from the CPU")
+            if not all(v > TRAIN_SMALL_LIMIT for v in faults.values()):
+                raise AssertionError(f"{arch}: the limit misses a planted fault: {faults}")
+            if any(counts.values()):
+                raise AssertionError(f"{arch}: a hand-written kernel ran: {counts}")
+
+
+def _first_grads(cfg, store, loader, args, params, n):
+    """Weighted-sum gradients of the first ``n`` steps of ``loader``'s plan."""
+    from repro_torch.data import build_pipeline
+    from repro_torch.launch import train_surrogate
+    from repro_torch.models import cnn
+
+    pipe = build_pipeline(train_surrogate.loader_spec(store, loader, args,
+                                                      num_epochs=1, prefetch_depth=0))
+    make_batch = train_surrogate.make_batch_fn(cfg, pipe.capacity)
+    out = []
+    for sb in pipe:
+        if len(out) == n:
+            break
+        b = {k: torch.from_numpy(v).cuda() for k, v in make_batch(sb).items()}
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        loss, m = cnn.surrogate_loss(leaves, b, cfg)
+        out.append(dict(zip(leaves, torch.autograd.grad(loss * m["tokens"],
+                                                        list(leaves.values())))))
+    return out
+
+
+def _step_device_time(cfg, store, loader, args, init, calls=5) -> dict:
+    """Device time of the training step alone, from a profiler trace of
+    ``calls`` steps on ``loader``'s first batch (padded to its capacity),
+    against their unprofiled wall time."""
+    from repro_torch.data import build_pipeline
+    from repro_torch.launch import train_surrogate
+    from repro_torch.train.step import init_train_state
+
+    pipe = build_pipeline(train_surrogate.loader_spec(store, loader, args, prefetch_depth=0))
+    sb = next(iter(pipe))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in train_surrogate.make_batch_fn(cfg, pipe.capacity)(sb).items()}
+    opt, step = train_surrogate.make_step(cfg, args)
+    state = init_train_state({k: v.cuda() for k, v in init.items()}, opt)
+
+    def steps():
+        nonlocal state
+        for _ in range(calls):
+            state, _ = step(state, batch)
+
+    steps()  # warm-up: cuDNN picks its algorithms
+    wall = host_ms(steps) / calls
+    return device_time(lambda: profiled_run(steps), wall, calls)
+
+
+def phase_train() -> list:
+    """Each surrogate at full width through the launcher, naive then solar;
+    returns the ``train`` line's rows."""
+    import tempfile
+
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.launch import train_surrogate
+    from repro_torch.models import cnn
+
+    rows = []
+    for arch, samples, nodes, local_batch, buffer, steps in TRAIN:
+        cfg = SURROGATES[arch]
+        args = _train_args(arch, nodes, local_batch, buffer, steps, 6)
+        global_batch = nodes * local_batch
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+            t0 = time.perf_counter()
+            store = train_surrogate.make_store(cfg, f"{tmp}/{arch}.bin", "binary", samples)
+            log(f"[train] {arch}: {samples} samples of {store.sample_bytes} B, store "
+                f"written in {time.perf_counter() - t0:.1f}s")
+            init = cnn.init_surrogate(cfg, generator=torch.Generator().manual_seed(0),
+                                      device="cpu")
+            try:
+                runs = {}
+                for loader in ("naive", "solar"):
+                    store.reset_counters()
+                    params = {k: v.cuda() for k, v in init.items()}
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                    reset_counts()
+                    t = train_surrogate.train_loader(cfg, store, loader, args, "cuda",
+                                                     params=params)
+                    counts = read_counts()
+                    peak = torch.cuda.max_memory_allocated() / 2**30
+                    hist = t.metrics_history
+                    wall = t.wait_time_s + t.load_time_s + t.compute_time_s
+                    losses = [m["loss"] for m in hist]
+                    rep_ = t.loader.report
+                    n = len(hist)
+                    row = {
+                        "arch": arch, "loader": loader, "steps": n,
+                        "global_batch": global_batch,
+                        "rows_per_step": nodes * t.loader.capacity,
+                        "sample_bytes": store.sample_bytes,
+                        "compute_ms_per_step": 1e3 * t.compute_time_s / n,
+                        "load_ms_per_step": 1e3 * t.load_time_s / n,
+                        "wait_ms_per_step": 1e3 * t.wait_time_s / n,
+                        "wall_ms_per_step": 1e3 * wall / n,
+                        "load_frac": t.load_time_s / (t.load_time_s + t.compute_time_s),
+                        "samples_per_s": sum(m["tokens"] for m in hist) / wall,
+                        "numPFS": rep_.total_pfs, "hit_rate": rep_.hit_rate,
+                        "modeled_pfs_s": rep_.modeled_time_s,
+                        "loader_wall_s": rep_.wall_time_s,
+                        "peak_device_gib": peak,
+                        "first_loss": losses[0], "last_loss": losses[-1],
+                        "kernel_launches": counts,
+                    }
+                    busy = _step_device_time(cfg, store, loader, args, init)
+                    row["device_ms_per_step"] = busy["device_ms"]
+                    row["step_alone_wall_ms"] = busy["wall_ms"]
+                    row["device_busy_share"] = (busy["device_ms"] or 0.0) / row["wall_ms_per_step"]
+                    log(f"[train] {arch} {loader}: one step alone: device "
+                        f"{busy['device_ms']} ms of {busy['wall_ms']:.3f} ms wall (busy "
+                        f"{busy['busy_share']}); top kernels {busy['top']}")
+                    rows.append(row)
+                    runs[loader] = hist
+                    log(f"[train] {arch} {loader}: {json.dumps(row)}")
+                    tail = losses[-max(n // 10, 1):]
+                    if n != steps or not all(map(math.isfinite, losses)):
+                        raise AssertionError(f"{arch} {loader}: {n} of {steps} steps, "
+                                             "or a loss that is not finite")
+                    if not sum(tail) / len(tail) < losses[0]:
+                        raise AssertionError(f"{arch} {loader}: the loss did not fall")
+                    if any(m["tokens"] != global_batch for m in hist):
+                        raise AssertionError(f"{arch} {loader}: a step's weight is not "
+                                             f"the global batch {global_batch}")
+                    if any(counts.values()):
+                        raise AssertionError(f"{arch} {loader}: a hand-written kernel "
+                                             f"ran on the training path: {counts}")
+
+                # paper Eq. 3: solar's step-k batch gives naive's step-k gradient
+                params = {k: v.cuda() for k, v in init.items()}
+                gn = _first_grads(cfg, store, "naive", args, params, TRAIN_GRAD_STEPS)
+                gs = _first_grads(cfg, store, "solar", args, params, TRAIN_GRAD_STEPS)
+                grad_err = max(
+                    float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30))
+                    for a, b in zip(gs, gn) for k in b)
+                log(f"[train] {arch}: solar vs naive gradients, first {len(gn)} steps: max "
+                    f"|diff| / max |g| {grad_err:.3e} (tol {TRAIN_GRAD_TOL:g})")
+                if len(gn) != TRAIN_GRAD_STEPS or not grad_err <= TRAIN_GRAD_TOL:
+                    raise AssertionError(f"{arch}: solar's gradient is not naive's")
+
+                # a checkpoint at step k resumes into the same step ids
+                k = TRAIN_RESUME_AT
+                ckpt = f"{tmp}/ckpt"
+                train_surrogate.train_loader(
+                    cfg, store, "solar", args, "cuda", max_steps=k, checkpoint_dir=ckpt,
+                    checkpoint_every=k, params={n_: v.cuda() for n_, v in init.items()})
+                res = train_surrogate.train_loader(
+                    cfg, store, "solar", args, "cuda", max_steps=2 * k, checkpoint_dir=ckpt,
+                    resume=True, params={n_: v.cuda() for n_, v in init.items()})
+                ids = [m["step"] for m in res.metrics_history]
+                want = runs["solar"][k:2 * k]
+                loss_err = max(abs(m["loss"] - w["loss"]) / abs(w["loss"])
+                               for m, w in zip(res.metrics_history, want))
+                log(f"[train] {arch}: resumed at step {k}: step ids {ids}; losses vs the "
+                    f"uninterrupted run: max rel diff {loss_err:.3e} (tol "
+                    f"{TRAIN_RESUME_RTOL:g})")
+                if ids != [m["step"] for m in want] or not loss_err <= TRAIN_RESUME_RTOL:
+                    raise AssertionError(f"{arch}: the resumed run is not the same run")
+                for row in rows[-2:]:
+                    row["grad_max_rel_err"] = grad_err
+                    row["resume_loss_rel_err"] = loss_err
+            finally:
+                store.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -968,12 +1273,17 @@ def main() -> int:
         done("small")
         launches = phase_serve()
         done("serve")
+        phase_train_small()
+        done("train_small")
+        train_rows = phase_train()
+        done("train")
         rows = phase_report(launches, worst)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
+    print(json.dumps({"train": train_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

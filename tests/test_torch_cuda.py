@@ -355,3 +355,124 @@ def test_scan_and_norm_kernels_refuse_what_they_do_not_take(cuda):
         rn.rms_norm(x.T, torch.zeros(4, device=cuda))
     with pytest.raises(ValueError, match="does not fit"):
         rn.rms_norm(x, scale[:32])
+
+
+# -- the surrogate training path (no hand-written kernel: convolutions, the
+# optimizer and the pinned host-to-device staging, on the card) -------------
+
+class _StepCfg:
+    grad_accum = 1
+    grad_accum_dtype = "float32"
+
+
+@pytest.fixture()
+def no_tf32(cuda):
+    """f32 convolutions in full f32: cuDNN defaults to TF32."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = before
+
+
+@pytest.mark.parametrize("name", ["ptychonn", "autophasenn", "cosmoflow"])
+def test_surrogate_train_step_on_the_card_equals_the_cpu_step(no_tf32, name):
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.models import cnn
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    cfg = SURROGATES[name].reduced()
+    rng = np.random.default_rng(0)
+    batch = {"x": rng.standard_normal((6,) + cfg.input_shape).astype(np.float32),
+             "y": rng.standard_normal((6,) + cfg.output_shape).astype(np.float32),
+             "weights": np.array([1, 1, 1, 1, 0, 0], np.float32)}
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(_StepCfg(), opt, lambda p, b: cnn.surrogate_loss(p, b, cfg))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = cnn.init_surrogate(cfg, generator=torch.Generator().manual_seed(1),
+                                    device=dev)
+        state, m = step(init_train_state(params, opt),
+                        {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        assert all(t.device.type == dev for t in state["params"].values())
+        out[dev] = (state, {k: float(v) for k, v in m.items()})
+    (cs, cm), (gs, gm) = out["cpu"], out["cuda"]
+    assert gm["tokens"] == cm["tokens"] == 4.0
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(gm[k], cm[k], rtol=1e-5)
+    for k, v in cs["params"].items():
+        # One Adam step moves an element by about lr·g/|g| = 1e-5 (warmup);
+        # an element whose gradient sits within f32 error of 0 may move
+        # less, or the other way, on one device: all within 2·lr, nearly
+        # all within 2e-7.
+        diff = np.abs(gs["params"][k].cpu().numpy() - v.numpy())
+        lr = float(cm["lr"])
+        assert diff.max() <= 2 * lr
+        assert (diff > 2e-7).mean() <= 1e-4
+        mu = cs["opt"].mu[k].numpy()
+        np.testing.assert_allclose(gs["opt"].mu[k].cpu().numpy(), mu, rtol=1e-5,
+                                   atol=1e-5 * np.abs(mu).max())
+
+
+def test_pinned_double_buffer_delivers_exactly_to_global_bytes(cuda, tmp_path):
+    from repro_torch.data import DatasetSpec, LoaderSpec, build_pipeline, create_store
+    from repro_torch.train.trainer import PinnedBatchStager
+
+    # 1 MiB samples: copies long enough that refilling a pinned buffer
+    # before its copy landed would show
+    store = create_store(str(tmp_path / "ds.bin"), "binary",
+                         spec=DatasetSpec(96, (256, 1024), "<f4"), fill="random")
+    try:
+        ld = build_pipeline(LoaderSpec(loader="solar", store=store, num_nodes=2,
+                                       local_batch=4, num_epochs=1, buffer_size=16,
+                                       collect_data=True))
+        stager = PinnedBatchStager(cuda)
+        host, dev, sums = [], [], []
+        for sb in ld:
+            data, weights = sb.to_global(ld.capacity)
+            host.append((data, weights))
+            d = stager({"x": data, "weights": weights})
+            dev.append(d)
+            sums.append(d["x"].double().sum())  # on the compute stream, at once
+        torch.cuda.synchronize()
+        assert len(dev) >= 4
+        for (data, weights), d, s in zip(host, dev, sums):
+            assert d["x"].cpu().numpy().tobytes() == data.tobytes()
+            assert d["weights"].cpu().numpy().tobytes() == weights.tobytes()
+            np.testing.assert_allclose(float(s), data.astype(np.float64).sum(), rtol=1e-12)
+    finally:
+        store.close()
+
+
+def test_trainer_on_the_card_follows_the_cpu_trainer(no_tf32, tmp_path):
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.data import DatasetSpec, LoaderSpec, build_pipeline, create_store
+    from repro_torch.launch.train_surrogate import make_batch_fn
+    from repro_torch.models import cnn
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer
+
+    cfg = SURROGATES["ptychonn"].reduced()
+    store = create_store(str(tmp_path / "ds.bin"), "binary",
+                         spec=DatasetSpec(256, cfg.input_shape, "<f4"), fill="random")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=10)
+    step = make_train_step(_StepCfg(), opt, lambda p, b: cnn.surrogate_loss(p, b, cfg))
+    runs = {}
+    try:
+        for dev in ("cpu", "cuda"):
+            spec = LoaderSpec(loader="solar", store=store, num_nodes=2, local_batch=8,
+                              num_epochs=2, buffer_size=64, collect_data=True,
+                              prefetch_depth=2, num_workers=2)
+            params = cnn.init_surrogate(cfg, generator=torch.Generator().manual_seed(0),
+                                        device=dev)
+            pipeline = build_pipeline(spec)
+            t = Trainer(loader=pipeline, step_fn=step, state=init_train_state(params, opt),
+                        make_batch=make_batch_fn(cfg, pipeline.capacity), device=dev)
+            t.run(max_steps=10)
+            runs[dev] = t.metrics_history
+    finally:
+        store.close()
+    assert [m["tokens"] for m in runs["cuda"]] == [m["tokens"] for m in runs["cpu"]]
+    np.testing.assert_allclose([m["loss"] for m in runs["cuda"]],
+                               [m["loss"] for m in runs["cpu"]], rtol=1e-5)

@@ -36,7 +36,17 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.kernels.selective_scan", "repro_torch.kernels.rmsnorm",
                  "repro_torch.configs.hymba_1_5b", "repro_torch.configs.falcon_mamba_7b",
                  "repro_torch.models.lm", "repro_torch.serve.engine",
-                 "repro_torch.launch.serve", "repro_torch.convert"):
+                 "repro_torch.launch.serve", "repro_torch.convert",
+                 "repro_torch.configs.surrogates", "repro_torch.obs.trace",
+                 "repro_torch.core.plan", "repro_torch.core.planners",
+                 "repro_torch.core.scheduler", "repro_torch.data.backends.hdf5",
+                 "repro_torch.data.backends.sharded", "repro_torch.data.storage",
+                 "repro_torch.data.loaders", "repro_torch.data.prefetch",
+                 "repro_torch.data.peer", "repro_torch.data.pipeline",
+                 "repro_torch.models.cnn", "repro_torch.optim.adamw",
+                 "repro_torch.distributed.compression", "repro_torch.train.step",
+                 "repro_torch.train.trainer", "repro_torch.checkpoint.checkpoint",
+                 "repro_torch.launch.train_surrogate"):
         assert name in report["imported"]
 
 
@@ -59,6 +69,18 @@ def test_entry_points_raise_without_cuda(no_cuda):
         ServeEngine(cfg, params, max_len=16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.main(["--arch", "qwen2-0.5b", "--reduced"])
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.launch import train_surrogate
+    from repro_torch.models import cnn
+    from repro_torch.train.trainer import Trainer
+
+    scfg = SURROGATES["ptychonn"].reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cnn.Surrogate(scfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_surrogate.main(["--arch", "ptychonn", "--reduced", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(loader=[], step_fn=None, state={}, make_batch=None)
     # asked for explicitly, the CPU works
     out = ServeEngine(cfg, params, max_len=16, device="cpu").generate(
         np.zeros((1, 4), np.int32), 2)
