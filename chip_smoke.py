@@ -5,18 +5,28 @@
 
 Phases, all run in order, each of which must pass:
   1. build   — compile every hand-written kernel under ``src/repro_torch/
-               kernels/csrc`` with nvcc, one process per source, in parallel;
+               kernels/csrc`` (three forward, three backward) with nvcc, one
+               process per source, in parallel;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the shape sweeps of ``tests/test_kernels.py`` in f32 and
                bf16, the edges of the bf16 tensor-core attention kernel, plus
                the shapes the serving paths give it (the scan there in f32
                too);
+     kernels_bwd — each backward kernel, through its autograd Function,
+               against autograd through its plain version, f32 and bf16:
+               the sweeps and the shapes training gives it;
   3. small   — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at ``reduced()``
                in f32: the card's engine (through the kernels) against the
                CPU engine (plain versions), the hymba ring cache wrapped; then
                qwen2-0.5b and hymba-1.5b at full width and 2 layers in bf16:
                prefill logits through the kernels against the plain versions,
                planted attention faults must land above the limit;
+     lm_small — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at full width,
+               2 layers, f32: the training loss and every gradient leaf
+               through the kernels (forward and backward) against the plain
+               versions, the launch counts exact; planted backward faults
+               (dV zeroed, the GQA sum dropped, ds or da skipped) must land
+               LM_SMALL_FAULT_FACTOR times beyond the limit;
   4. serve   — each serving path at full width in bf16, random weights from
                seed 0, through ``ServeEngine.generate``: qwen2-0.5b (dense:
                K2, K1), hymba-1.5b (hybrid, full depth: K2, K3, K1) and
@@ -44,13 +54,22 @@ Phases, all run in order, each of which must pass:
                hand-written kernel lies on this path: the launch counts,
                set to 0 before each run, must read 0 after it.  Prints a
                ``{"train": [...]}`` line of step, load and loader readings;
+     lm_train — hymba-1.5b at full width and depth, qwen2-0.5b at full
+               width, falcon-mamba-7b at 8 of 64 layers, bf16, through
+               ``launch.train`` on SOLAR-planned token batches: a warm-up
+               step and timed steps (compute, load, wait, wall, tokens/s),
+               the device time and busy share of one more step, peak
+               memory; every forward and backward launch count must equal
+               ``expected_train_counts`` and every loss be finite.  Prints a
+               ``{"lm_train": [...]}`` line;
   7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
                the mask admits and the f32 kernel's time, the scan row the
                time of its earlier design (built from ``kernels/baselines/``
                and timed in the same run) and its f32 error, the norm row its
-               decode-row times), the
+               decode-row times; the backward rows at hymba-1.5b's training
+               shapes, the library's backward timed eagerly), the
                card's name and power limit, and last the
                ``{"ok": true, "device": ...}`` line.
 
@@ -193,6 +212,40 @@ TRAIN_GRAD_TOL = 1e-4
 TRAIN_RESUME_AT = 5
 TRAIN_RESUME_RTOL = 1e-3
 
+# Backward kernels against autograd through their plain versions: max |diff|
+# over max |reference| (at least 1) of each gradient.  f32: sums in another
+# order; bf16: bf16 outputs, and for attention the bf16 forward's rounding of
+# P and O, which the backward reads back through D = rowsum(dO O).
+TOL_BWD = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# The shapes training gives each backward kernel: a microbatch of 2 (hymba,
+# falcon; qwen2 4) sequences of 2048 tokens.
+ATTN_TRAIN = {"hymba-1.5b": (2, 25, 5, 2048, 2048, 64, True, 1024),
+              "qwen2-0.5b": (4, 14, 2, 2048, 2048, 64, True, 0)}
+SCAN_TRAIN = {"hymba-1.5b": (2, 2048, 3200, 16), "falcon-mamba-7b": (2, 2048, 8192, 16)}
+NORM_TRAIN = {"hymba-1.5b": (4096, 1600), "qwen2-0.5b": (8192, 896),
+              "falcon-mamba-7b": (4096, 4096)}
+
+# LM training through the kernels against the plain versions, f32, full width
+# and few layers: (arch, layers, batch, sequence).  The drift is the larger
+# of the loss's relative difference and, over every gradient leaf, max |diff|
+# over the leaf's max |value|.  Both runs take the same weights and batch; the
+# kernels sum in other orders than the plain versions (f32 SIMT attention,
+# the scan's lane reductions), a few f32 ulps of the largest element.  Each
+# planted fault must land LM_SMALL_FAULT_FACTOR times beyond the limit.
+LM_SMALL = [("qwen2-0.5b", 2, 2, 2048), ("hymba-1.5b", 2, 2, 2048),
+            ("falcon-mamba-7b", 2, 2, 1024)]
+LM_SMALL_LIMIT = 1e-3
+LM_SMALL_FAULT_FACTOR = 10
+# LM training at full width on SOLAR's planned token batches, bf16 params,
+# through launch.train: (arch, layers (None: full depth), timed steps after
+# one warm-up step).  2 nodes x local batch 5 pad to a capacity of 8 rows a
+# node: 16 sequences of 2048 tokens a step, grad_accum microbatches of 2
+# (qwen2: 4).  falcon-mamba-7b's 64 layers would need ~100 GB for bf16
+# params, f32 moments and the f32 accumulation buffer: 8 of them run.
+LM_TRAIN = [("hymba-1.5b", None, 3), ("qwen2-0.5b", None, 3), ("falcon-mamba-7b", 8, 2)]
+LM_TRAIN_ARGS = ["--seq-len", "2048", "--nodes", "2", "--local-batch", "5", "--buffer", "64",
+                 "--epochs", "1", "--num-samples", "256", "--num-workers", "2"]
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -209,19 +262,24 @@ def max_sm_clock_hz() -> float:
 
 
 def counters():
+    """{kernel: (wrapper module, its launch count's name)}: the six kernels."""
     from repro_torch.kernels import flash_attention, rmsnorm, selective_scan
 
-    return {"flash_attention": flash_attention, "selective_scan": selective_scan,
-            "rms_norm": rmsnorm}
+    return {"flash_attention": (flash_attention, "launches"),
+            "flash_attention_bwd": (flash_attention, "bwd_launches"),
+            "selective_scan": (selective_scan, "launches"),
+            "selective_scan_bwd": (selective_scan, "bwd_launches"),
+            "rms_norm": (rmsnorm, "launches"),
+            "rms_norm_bwd": (rmsnorm, "bwd_launches")}
 
 
 def reset_counts():
-    for mod in counters().values():
-        mod.launches = 0
+    for mod, attr in counters().values():
+        setattr(mod, attr, 0)
 
 
 def read_counts() -> dict:
-    return {name: mod.launches for name, mod in counters().items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters().items()}
 
 
 def cuda_ms(fn, *, iters: int = 20, repeats: int = 7, warmup: int = 3) -> float:
@@ -283,15 +341,17 @@ def host_ms(fn, *, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def profiled():
+def profiled(cpu: bool = True):
+    """A profiler of the card's kernels, and of the host's ops with ``cpu``
+    (which a training step's tens of thousands of ops make slow to trace)."""
     from torch.profiler import ProfilerActivity, profile
 
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    return profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA])
 
 
-def profiled_run(fn):
+def profiled_run(fn, cpu: bool = True):
     torch.cuda.synchronize()
-    with profiled() as prof:
+    with profiled(cpu) as prof:
         fn()
         torch.cuda.synchronize()
     return prof
@@ -431,7 +491,8 @@ def phase_build():
     from repro_torch.kernels import flash_attention as fa
 
     kernels = _build.names()
-    if kernels != ["flash_attention", "rms_norm", "selective_scan"]:
+    if kernels != ["flash_attention", "flash_attention_bwd", "rms_norm", "rms_norm_bwd",
+                   "selective_scan", "selective_scan_bwd"]:
         raise AssertionError(f"unexpected kernel set {kernels}")
     t0 = time.perf_counter()
     # the scan's earlier design too, built only to time the current one against
@@ -501,6 +562,86 @@ def phase_kernels():
                          [ref.rms_norm_ref(x, scale, 1e-6)], dtype)
             bf16_serve = serve and dtype == torch.bfloat16
             note("rms_norm", "serve" if bf16_serve else str(dtype)[6:], err)
+    return worst
+
+
+def _agree_grads(name, label, got, want, dtype) -> float:
+    """The worst max |diff| / max(1, max |want|) over the gradients."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"{name} {label}: gradient {g.dtype} {tuple(g.shape)}, "
+                                 f"plain {w.dtype} {tuple(w.shape)}")
+        scale = max(1.0, w.float().abs().max().item())
+        err = max(err, (g.float() - w.float()).abs().max().item() / scale)
+    tol = TOL_BWD[dtype]
+    ok = math.isfinite(err) and err <= tol
+    log(f"[kernels_bwd] {name} {label} {str(dtype)[6:]}: max |diff| / max |ref| {err:.3e} "
+        f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with autograd through its plain version at "
+                             f"{label} {dtype}")
+    return err
+
+
+def _grads(fn, inputs, cotangent):
+    leaves = [t.detach().requires_grad_(t.is_floating_point()) for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    if out.grad_fn is None:
+        raise AssertionError("a kernel's output carries no backward")
+    return torch.autograd.grad(out, leaves, cotangent)
+
+
+def cotangent(shape, dtype, seed=9):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn(shape, generator=g, device="cuda").to(dtype)
+
+
+def phase_kernels_bwd():
+    """Each backward kernel, through its autograd Function, against autograd
+    through its plain version: the sweeps of tests/test_kernels.py and the
+    training shapes, f32 and bf16.  Returns {kernel: {key: worst error}}."""
+    from repro_torch.kernels import ops, ref
+
+    worst = {"flash_attention_bwd": {}, "selective_scan_bwd": {}, "rms_norm_bwd": {}}
+
+    def note(name, key, err):
+        worst[name][key] = max(worst[name].get(key, 0.0), err)
+
+    train_attn = list(ATTN_TRAIN.values())
+    for shape in ATTN_SWEEP + ATTN_TC_EDGES + train_attn:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = attention_inputs(shape, dtype)
+            causal, window = shape[6], shape[7]
+            do = cotangent(q.shape, dtype)
+            err = _agree_grads("flash_attention_bwd", str(shape), _grads(
+                lambda *t: ops.flash_attention(*t, causal=causal, window=window), (q, k, v), do),
+                ref.attention_ref_bwd(q, k, v, do, causal=causal, window=window), dtype)
+            train = shape in train_attn
+            note("flash_attention_bwd", ("train_" if train else "") + str(dtype)[6:], err)
+    train_scan = list(SCAN_TRAIN.values())
+    for shape in SCAN_SWEEP + train_scan:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(shape, dtype)
+            dy = cotangent(args[0].shape, torch.float32)
+            err = _agree_grads("selective_scan_bwd", str(shape),
+                               _grads(ops.selective_scan, args, dy),
+                               ref.selective_scan_ref_bwd(*args, dy), dtype)
+            train = shape in train_scan
+            note("selective_scan_bwd", ("train_" if train else "") + str(dtype)[6:], err)
+    train_norm = list(NORM_TRAIN.values())
+    for shape in NORM_SWEEP + train_norm:
+        for dtype in (torch.float32, torch.bfloat16):
+            train = shape in train_norm
+            x, scale = norm_inputs(shape, dtype)
+            scale = scale if train else scale.float()  # a model's scale is in its param dtype
+            dy = cotangent(x.shape, dtype)
+            err = _agree_grads("rms_norm_bwd", str(shape), _grads(
+                lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy),
+                ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype)
+            note("rms_norm_bwd", ("train_" if train else "") + str(dtype)[6:], err)
     return worst
 
 
@@ -589,9 +730,9 @@ def expected_counts(cfg, gen: int) -> dict:
     attn = cfg.family != "ssm"
     scan = cfg.family in ("ssm", "hybrid")
     norms = {"dense": 2, "hybrid": 3, "ssm": 1}[cfg.family] * layers + 1
-    return {"flash_attention": layers if attn else 0,
-            "selective_scan": layers if scan else 0,
-            "rms_norm": norms * (1 + gen), "rms_norm_per_pass": norms}
+    return {"flash_attention": layers if attn else 0, "flash_attention_bwd": 0,
+            "selective_scan": layers if scan else 0, "selective_scan_bwd": 0,
+            "rms_norm": norms * (1 + gen), "rms_norm_bwd": 0, "rms_norm_per_pass": norms}
 
 
 def planted_fault_diffs(eng, prompts, ref_logits, cfg, only: str | None = None) -> dict:
@@ -706,7 +847,7 @@ def serve_model(arch, batch, prompt, gen) -> dict:
     log(f"[serve] {arch} launches per prefill {prefill_counts}, per decode step "
         f"{step_counts}")
     if prefill_counts["rms_norm"] != want["rms_norm_per_pass"] or \
-            step_counts != {"flash_attention": 0, "selective_scan": 0,
+            step_counts != {**{k: 0 for k in step_counts},
                             "rms_norm": want["rms_norm_per_pass"]}:
         raise AssertionError(f"{arch}: per-pass launches differ from {want}")
 
@@ -830,7 +971,7 @@ def _to_f32(tree):
 
 def phase_serve() -> dict:
     """Returns {kernel: {arch: launches of that path's main run}}."""
-    launches = {name: {} for name in TOL}
+    launches = {name: {} for name in counters()}
     for arch, batch, prompt, gen in SERVE:
         t0 = time.perf_counter()
         counts = serve_model(arch, batch, prompt, gen)
@@ -847,7 +988,7 @@ def time_calls(calls: dict, **kw) -> dict:
     return {"graph": graph, "eager": eager}
 
 
-def phase_report(launches: dict, worst: dict) -> list:
+def phase_report(launches: dict, worst: dict, worst_bwd: dict) -> list:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -988,6 +1129,151 @@ def phase_report(launches: dict, worst: dict) -> list:
                          "plain_ms": nf["plain"], "bound_ms": nf_bound,
                          "bound_by": nf_by, "library_ms": nf["library"]},
         "decode_rows": decode,
+    })
+    rows += report_bwd(launches, worst_bwd, clock_hz)
+    return rows
+
+
+def attention_bwd_bound(q, k, causal: bool, window: int):
+    """Least time (ms) for attention's backward: the larger of the bytes (q,
+    k, v, o, dO and the row log-sum-exp read once; dq, dk, dv written once)
+    over HBM and 10 * hd FLOPs per admitted score (S recomputed, dP, dV, dQ,
+    dK: five products) over the bf16 tensor-core peak."""
+    b, h, sq, hd = q.shape
+    flops = 10 * hd * int(mask_ok(sq, k.shape[2], causal, window).sum()) * b * h
+    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * h * sq
+    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / HBM_BYTE_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def scan_bwd_bound(u, a, clock_hz: float):
+    """Least time (ms) for the scan's backward: the largest of the bytes (u,
+    dt, B, C, a, d_skip and the f32 dy read once; du, ddt, dB, dC in the
+    input dtype and the f32 da, dd_skip written once) over HBM, one exp per
+    (b, t, d, n) (each step's decay) over the special function units, and
+    14 f32 operations per (b, t, d, n) (dh = decay * dh + C dy; one FMA each
+    into dA, ddt, du, dB and dC) over the f32 peak."""
+    b, s, di = u.shape
+    n = a.shape[1]
+    elems = b * s * di * n
+    nbytes = 2 * (2 * u.numel() + 2 * b * s * n) * u.element_size() \
+        + 2 * (a.numel() + di) * 4 + u.numel() * 4
+    parts = {"bytes": nbytes / HBM_BYTE_S * 1e3,
+             "exp": elems / (SFU_PER_SM_CLK * SMS * clock_hz) * 1e3,
+             "f32_ops": 14 * elems / PEAK_F32_FLOP_S * 1e3}
+    worst = max(parts, key=parts.get)
+    return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
+
+
+def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float) -> list:
+    """The backward kernels' rows: CUDA-graph times at hymba-1.5b's training
+    shapes, the plain versions (autograd through ``kernels/ref.py``) and the
+    library's backward timed eagerly, one call per timing."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import selective_scan as ss
+
+    rows = []
+    eager = dict(iters=1, repeats=3, warmup=1)
+
+    def lib_bwd(fn, inputs, grad):
+        leaves = [t.detach().requires_grad_(True) for t in inputs]
+        out = fn(*leaves)
+        return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    shape = ATTN_TRAIN["hymba-1.5b"]
+    q, k, v = attention_inputs(shape, torch.bfloat16)
+    causal, window = shape[6], shape[7]
+    do = cotangent(q.shape, torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
+    mask = mask_ok(shape[3], shape[4], causal, window, "cuda")
+    t = {"kernel": graph_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                                           window=window)),
+         "plain": cuda_ms(lambda: ref.attention_ref_bwd(q, k, v, do, causal=causal,
+                                                        window=window), **eager),
+         "library": cuda_ms(lib_bwd(lambda q_, k_, v_: F.scaled_dot_product_attention(
+             q_, k_, v_, attn_mask=mask, enable_gqa=True), (q, k, v), do), **eager)}
+    bound_ms, bound_by = attention_bwd_bound(q, k, causal, window)
+    log(f"[report] flash_attention_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
+        f"({bound_by})")
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "note": "the TPU kernel has no VJP; this is the gradient of its plain path",
+        "shape": "q/dO [2,25,2048,64] k/v [2,5,2048,64] bf16 causal window 1024 "
+                 "(hymba-1.5b training microbatch)",
+        "launches": sum(launches["flash_attention_bwd"].values()),
+        "launches_by_path": launches["flash_attention_bwd"],
+        "max_abs_err": worst_bwd["flash_attention_bwd"]["train_bfloat16"],
+        "error_measure": "max |diff| / max(1, max |plain|) over dq, dk, dv",
+        "tolerance": TOL_BWD[torch.bfloat16],
+        "sweep_max_abs_err": worst_bwd["flash_attention_bwd"],
+        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": t["library"],  # SDPA's backward (efficient or math, with the mask)
+    })
+    del q, k, v, do, o, lse, mask
+
+    shape = SCAN_TRAIN["hymba-1.5b"]
+    args = scan_inputs(shape, torch.bfloat16)
+    dy = cotangent(args[0].shape, torch.float32)
+    _, _, hck = ss.selective_scan_fwd(*args, checkpoints=True)
+    t = {"kernel": graph_ms(lambda: ss.selective_scan_bwd(*args, hck, dy)),
+         "plain": cuda_ms(lambda: ref.selective_scan_ref_bwd(*args, dy), **eager)}
+    bound_ms, bound_by, parts = scan_bwd_bound(args[0], args[2], clock_hz)
+    log(f"[report] selective_scan_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
+        f"({bound_by}; parts {parts})")
+    rows.append({
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:61",
+        "note": "the TPU kernel has no VJP; this is the gradient of its plain path",
+        "shape": "u/dt [2,2048,3200] B/C [2,2048,16] bf16, dy f32 (hymba-1.5b training "
+                 "microbatch)",
+        "launches": sum(launches["selective_scan_bwd"].values()),
+        "launches_by_path": launches["selective_scan_bwd"],
+        "max_abs_err": worst_bwd["selective_scan_bwd"]["train_bfloat16"],
+        "error_measure": "max |diff| / max(1, max |plain|) over du, ddt, da, dB, dC, dD",
+        "tolerance": TOL_BWD[torch.bfloat16],
+        "sweep_max_abs_err": worst_bwd["selective_scan_bwd"],
+        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": bound_ms, "bound_by": bound_by, "bound_parts_ms": parts,
+        "library_ms": None,  # no PyTorch call computes a selective scan
+    })
+    del args, dy, hck
+
+    shape = NORM_TRAIN["hymba-1.5b"]
+    x, scale = norm_inputs(shape, torch.bfloat16)
+    dy = cotangent(x.shape, torch.bfloat16)
+    t = {"kernel": graph_ms(lambda: rn.rms_norm_bwd(x, scale, dy, eps=1e-6)),
+         "plain": graph_ms(lambda: ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)),
+         "library": cuda_ms(lib_bwd(lambda x_, w_: F.rms_norm(x_, (shape[1],), weight=w_,
+                                                              eps=1e-6),
+                                    (x, 1 + scale), dy), iters=20)}
+    nbytes = 3 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+    bound_ms = nbytes / HBM_BYTE_S * 1e3
+    log(f"[report] rms_norm_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} (bytes); "
+        f"{rn.bwd_launch_shape(*shape, x.dtype)}")
+    rows.append({
+        "name": "rms_norm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rms_norm_bwd.cu",
+        "replaces": "src/repro/kernels/rmsnorm.py:26",
+        "note": "the TPU kernel has no VJP; this is the JAX package's custom VJP of "
+                "its plain rms_norm (src/repro/models/layers.py:63)",
+        "shape": "x/dy [4096,1600] bf16, scale [1600] bf16 (hymba-1.5b training microbatch)",
+        "launches": sum(launches["rms_norm_bwd"].values()),
+        "launches_by_path": launches["rms_norm_bwd"],
+        "max_abs_err": worst_bwd["rms_norm_bwd"]["train_bfloat16"],
+        "error_measure": "max |diff| / max(1, max |plain|) over dx, ds",
+        "tolerance": TOL_BWD[torch.bfloat16],
+        "sweep_max_abs_err": worst_bwd["rms_norm_bwd"],
+        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
+        "bound_ms": bound_ms, "bound_by": "bytes",
+        "library_ms": t["library"],  # F.rms_norm's backward, eager
     })
     return rows
 
@@ -1246,6 +1532,242 @@ def phase_train() -> list:
     return rows
 
 
+def expected_train_counts(cfg, microbatches: int) -> dict:
+    """Kernel launches of ``microbatches`` forward-and-backward passes of
+    ``lm.train_loss``: per layer K2 (dense, hybrid) and K3 (ssm, hybrid)
+    once in each forward and once in the backward; K1 per layer (dense ln1,
+    ln2; hybrid also ln_ssm; ssm ln1) plus the final norm.  Remat runs each
+    block's forward again in the backward (a two-level scan a third time);
+    the final norm lies outside the blocks."""
+    layers = cfg.num_layers
+    passes = 1 + bool(cfg.remat) + bool(cfg.remat and cfg.scan_block
+                                        and layers % cfg.scan_block == 0)
+    attn = layers if cfg.family != "ssm" else 0
+    scan = layers if cfg.family in ("ssm", "hybrid") else 0
+    norms = {"dense": 2, "hybrid": 3, "ssm": 1}[cfg.family] * layers
+    return {k: v * microbatches for k, v in {
+        "flash_attention": attn * passes, "flash_attention_bwd": attn,
+        "selective_scan": scan * passes, "selective_scan_bwd": scan,
+        "rms_norm": norms * passes + 1, "rms_norm_bwd": norms + 1}.items()}
+
+
+def _kernel_families(cfg) -> set:
+    fam = {"rms_norm"}
+    if cfg.family != "ssm":
+        fam.add("flash_attention")
+    if cfg.family in ("ssm", "hybrid"):
+        fam.add("selective_scan")
+    return fam
+
+
+@contextlib.contextmanager
+def planted_bwd(fault: str | None):
+    """Patch one fault into a backward kernel's wrapper for the block (the
+    autograd Functions look the wrappers up when they run)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import selective_scan as ss
+
+    saved = (fa.flash_attention_bwd, rn.rms_norm_bwd, ss.selective_scan_bwd)
+
+    def attn(q, k, v, o, lse, do, **kw):
+        dq, dk, dv = saved[0](q, k, v, o, lse, do, **kw)
+        if fault == "dV zeroed":
+            return dq, dk, torch.zeros_like(dv)
+        # "GQA sum dropped": dK, dV of the first query head of each group only
+        g = q.shape[1] // k.shape[1]
+
+        def first(t):
+            return t[:, ::g].contiguous()
+        _, dk1, dv1 = saved[0](first(q), k, v, first(o), first(lse), first(do), **kw)
+        return dq, dk1, dv1
+
+    def norm(*a, **kw):
+        dx, ds = saved[1](*a, **kw)
+        return dx, torch.zeros_like(ds)
+
+    def scan(*a, **kw):
+        du, ddt, da, db, dc, dd = saved[2](*a, **kw)
+        return du, ddt, torch.zeros_like(da), db, dc, dd
+
+    if fault in ("dV zeroed", "GQA sum dropped"):
+        fa.flash_attention_bwd = attn
+    elif fault == "ds skipped":
+        rn.rms_norm_bwd = norm
+    elif fault == "da skipped":
+        ss.selective_scan_bwd = scan
+    elif fault is not None:
+        raise ValueError(fault)
+    try:
+        yield
+    finally:
+        fa.flash_attention_bwd, rn.rms_norm_bwd, ss.selective_scan_bwd = saved
+
+
+def lm_batch(cfg, batch, seq, seed=0) -> dict:
+    """Tokens, shifted labels (a few ignored: -1) and weights on the card."""
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+    labels = np.roll(tokens, -1, axis=1)
+    labels[:, -1] = -1
+    labels[0, :7] = -1
+    return {"tokens": torch.from_numpy(tokens).cuda(),
+            "labels": torch.from_numpy(labels).cuda(),
+            "weights": torch.ones(batch, device="cuda")}
+
+
+def phase_lm_small():
+    """``LM_SMALL``: loss and every gradient leaf through the kernels against
+    the same weights through the plain versions, in f32 at full width; the
+    planted backward faults must land LM_SMALL_FAULT_FACTOR times beyond the
+    limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    kernels = dict(attn_impl="pallas", ssm_impl="pallas", norm_impl="pallas")
+    plain = dict(attn_impl="ref", ssm_impl="ref", norm_impl="ref")
+    for arch, layers, batch, seq in LM_SMALL:
+        cfg = get_config(arch).replace(num_layers=layers, param_dtype="float32",
+                                       compute_dtype="float32")
+        flat = lm.flat_params(lm.init_lm(cfg, seed=0, device="cuda"))
+        g = torch.Generator(device="cuda").manual_seed(1)
+        for name, t in flat.items():  # the zero-initialised norm scales and biases
+            if not t.abs().max().item():
+                t.add_(0.05 * torch.randn(t.shape, generator=g, device="cuda"))
+        b = lm_batch(cfg, batch, seq)
+
+        def run(impls):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in flat.items()}
+            loss, _ = lm.train_loss(lm.nested_params(leaves), b, cfg, **impls)
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                        materialize_grads=True)
+            return loss.detach(), dict(zip(leaves, grads))
+
+        want_loss, want = run(plain)
+
+        def drift(got_loss, got):
+            worst = abs(got_loss.item() - want_loss.item()) / abs(want_loss.item())
+            for k, w in want.items():
+                scale = max(w.abs().max().item(), 1e-30)
+                worst = max(worst, (got[k] - w).abs().max().item() / scale)
+            return worst
+
+        reset_counts()
+        got_loss, got = run(kernels)
+        counts = read_counts()
+        want_counts = expected_train_counts(cfg, 1)
+        d = drift(got_loss, got)
+        fams = _kernel_families(cfg)
+        faults = ["ds skipped"] + (["dV zeroed", "GQA sum dropped"]
+                                   if "flash_attention" in fams else []) + \
+            (["da skipped"] if "selective_scan" in fams else [])
+        fault_drift = {}
+        for fault in faults:
+            with planted_bwd(fault):
+                fault_drift[fault] = drift(*run(kernels))
+        log(f"[lm_small] {arch} full width, {layers} layers, f32, batch {batch} x {seq}: "
+            f"loss {got_loss.item():.6f} (plain {want_loss.item():.6f}); drift kernels vs "
+            f"plain {d:.3e} (limit {LM_SMALL_LIMIT:g}); planted faults "
+            f"{ {k: float(f'{v:.4g}') for k, v in fault_drift.items()} } (each must exceed "
+            f"{LM_SMALL_FAULT_FACTOR}x the limit); launches {counts}")
+        if counts != want_counts:
+            raise AssertionError(f"{arch}: launches {counts}, want {want_counts}")
+        if not math.isfinite(got_loss.item()) or not d <= LM_SMALL_LIMIT:
+            raise AssertionError(f"{arch}: gradients through the kernels drift {d:.3e}")
+        if not all(v >= LM_SMALL_FAULT_FACTOR * LM_SMALL_LIMIT for v in fault_drift.values()):
+            raise AssertionError(f"{arch}: the limit misses a planted fault: {fault_drift}")
+        del flat, got, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_lm_train() -> tuple[list, dict]:
+    """``LM_TRAIN`` through ``launch.train`` on the card: returns the
+    ``lm_train`` line's rows and {kernel: {"<arch> train": launches}}."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as ltrain
+
+    rows, launches = [], {name: {} for name in counters()}
+    for arch, layers, timed in LM_TRAIN:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(num_layers=layers)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_lm_") as tmp:
+            args = ltrain.build_parser().parse_args(
+                ["train", "--arch", arch, *LM_TRAIN_ARGS, "--steps", str(1 + timed),
+                 "--data", f"{tmp}/{arch}.bin"])
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # The main path: counts set to 0 just before, read just after.
+            reset_counts()
+            t0 = time.perf_counter()
+            trainer = ltrain.train(args, "cuda", cfg=cfg)
+            run_s = time.perf_counter() - t0
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        hist, times = trainer.metrics_history, trainer.step_times
+        rows_per_step = args.nodes * trainer.loader.capacity
+        want = {k: v * (1 + timed) for k, v in expected_train_counts(
+            cfg, cfg.grad_accum).items()}
+        losses = [m["loss"] for m in hist]
+        steps = []
+        for m, st in list(zip(hist, times))[1:]:
+            wall = st["wait_s"] + st["load_s"] + st["compute_s"]
+            steps.append({"step": m["step"], "loss": m["loss"], "tokens": m["tokens"],
+                          "compute_ms": st["compute_s"] * 1e3, "load_ms": st["load_s"] * 1e3,
+                          "wait_ms": st["wait_s"] * 1e3, "wall_ms": wall * 1e3,
+                          "tokens_per_s": m["tokens"] / wall})
+        # one more step on a batch of the same shape: its device time from a
+        # trace of the card's kernels, against the timed steps' mean wall time
+        _, step = ltrain.make_step(cfg, args)
+        b = lm_batch(cfg, rows_per_step, args.seq_len, seed=1)
+        state = {"s": trainer.state}
+
+        def one_step():
+            state["s"], _ = step(state["s"], b)
+
+        wall_ms = statistics.mean(s_["wall_ms"] for s_ in steps)
+        busy = device_time(lambda: profiled_run(one_step, cpu=False), wall_ms, 1)
+        del state, trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        for name, n in counts.items():
+            launches[name][f"{arch} train"] = n
+        row = {
+            "arch": arch, "layers": cfg.num_layers, "family": cfg.family,
+            "param_dtype": cfg.param_dtype, "params": cfg.num_params(),
+            "seq_len": args.seq_len, "rows_per_step": rows_per_step,
+            "grad_accum": cfg.grad_accum, "microbatch": rows_per_step // cfg.grad_accum,
+            "steps": len(hist), "timed_steps": steps, "first_loss": losses[0],
+            "last_loss": losses[-1], "run_s": run_s,
+            "compute_ms_per_step": statistics.mean(s_["compute_ms"] for s_ in steps),
+            "load_ms_per_step": statistics.mean(s_["load_ms"] for s_ in steps),
+            "wait_ms_per_step": statistics.mean(s_["wait_ms"] for s_ in steps),
+            "wall_ms_per_step": statistics.mean(s_["wall_ms"] for s_ in steps),
+            "tokens_per_s": sum(s_["tokens"] for s_ in steps)
+            / (sum(s_["wall_ms"] for s_ in steps) / 1e3),
+            "step_device_ms": busy["device_ms"],
+            "device_busy_share": busy["busy_share"], "top_kernels": busy["top"],
+            "peak_device_gib": peak, "launches": counts, "expected_launches": want,
+        }
+        rows.append(row)
+        for s_ in steps:
+            log(f"[lm_train] {arch} step {s_['step']}: loss {s_['loss']:.4f}, compute "
+                f"{s_['compute_ms']:.1f} ms, load {s_['load_ms']:.1f} ms, wait "
+                f"{s_['wait_ms']:.1f} ms, wall {s_['wall_ms']:.1f} ms, "
+                f"{s_['tokens_per_s']:.0f} tokens/s")
+        log(f"[lm_train] {arch}: {json.dumps(row)}")
+        if counts != want:
+            raise AssertionError(f"{arch}: launches {counts}, want {want}")
+        if len(hist) != 1 + timed or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"{arch}: {len(hist)} steps, or a loss that is not finite")
+        if any(m["tokens"] <= 0 for m in hist):
+            raise AssertionError(f"{arch}: a step weighed no token")
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1269,21 +1791,30 @@ def main() -> int:
         done("build")
         worst = phase_kernels()
         done("kernels")
+        worst_bwd = phase_kernels_bwd()
+        done("kernels_bwd")
         phase_small()
         done("small")
+        phase_lm_small()
+        done("lm_small")
         launches = phase_serve()
         done("serve")
         phase_train_small()
         done("train_small")
         train_rows = phase_train()
         done("train")
-        rows = phase_report(launches, worst)
+        lm_rows, lm_launches = phase_lm_train()
+        done("lm_train")
+        for name, by_path in lm_launches.items():
+            launches[name].update(by_path)
+        rows = phase_report(launches, worst, worst_bwd)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
     except Exception:  # any failed phase fails the run, with its traceback
         traceback.print_exc()
         return 1
     print(json.dumps({"train": train_rows}), flush=True)
+    print(json.dumps({"lm_train": lm_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

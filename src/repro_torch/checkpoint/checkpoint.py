@@ -8,9 +8,12 @@ terminal ``COMMITTED`` marker; ``latest_checkpoint`` skips directories
 without it, so a crash mid-save never poisons a restart.
 
 Leaves are written in the JAX layout (:mod:`repro_torch.convert`), so a
-checkpoint written by either package restores in the other.  The port's
-train state is ``{"params": {name: tensor}, "opt": OptState(mu, nu, step),
-["ef": {name: tensor}]}``; flat names map to pytree paths by ``.`` → ``__``.
+checkpoint written by either package restores in the other: a CNN
+surrogate's convolution kernels are laid out back (its params are
+recognised by their names, ``convert.is_surrogate_params``), a language
+model's leaves already are in the JAX layout.  The port's train state is
+``{"params": {name: tensor}, "opt": OptState(mu, nu, step), ["ef": {name:
+tensor}]}``; flat names map to pytree paths by ``.`` → ``__``.
 bf16 leaves are written widened to f32 (numpy has no bf16 without
 ``ml_dtypes``), which restores exactly into a bf16 template.
 
@@ -31,7 +34,13 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.convert import surrogate_leaf_from_jax, surrogate_leaf_to_jax
+from repro_torch.convert import (
+    is_surrogate_params,
+    surrogate_leaf_from_jax,
+    surrogate_leaf_to_jax,
+    tensor_from_numpy,
+    tensor_to_numpy,
+)
 from repro_torch.optim.adamw import OptState
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_checkpoint",
@@ -103,17 +112,23 @@ def _map_state(state, fn):
     return {top: out[top] for top in state}
 
 
-def _leaf_to_host(name: str | None, t: torch.Tensor) -> np.ndarray:
+def _surrogate(state) -> bool:
+    return is_surrogate_params(state.get("params", {}))
+
+
+def _leaf_to_host(name: str | None, t: torch.Tensor, surrogate: bool) -> np.ndarray:
     if name is None:  # the optimizer's step counter
         return np.asarray(t.detach().cpu().numpy(), np.int32)
-    return surrogate_leaf_to_jax(name, t)
+    return surrogate_leaf_to_jax(name, t) if surrogate else tensor_to_numpy(t)
 
 
 def state_to_host(state) -> list[tuple[str, np.ndarray]]:
     """The state's leaves as ``(file name, JAX-layout numpy array)``: the
     device-to-host snapshot a checkpoint writes."""
     leaves = []
-    _map_state(state, lambda fname, name, t: leaves.append((fname, _leaf_to_host(name, t))))
+    surrogate = _surrogate(state)
+    _map_state(state, lambda fname, name, t: leaves.append(
+        (fname, _leaf_to_host(name, t, surrogate))))
     return leaves
 
 
@@ -157,7 +172,8 @@ def latest_checkpoint(directory: str) -> str | None:
     return best[1] if best else None
 
 
-def _load_leaf(path: str, fname: str, name: str | None, tmpl: torch.Tensor) -> torch.Tensor:
+def _load_leaf(path: str, fname: str, name: str | None, tmpl: torch.Tensor,
+               surrogate: bool) -> torch.Tensor:
     arr = np.load(os.path.join(path, fname + ".npy"))
     if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
         # a bf16 leaf written by the JAX package (ml_dtypes) reads back as
@@ -166,8 +182,10 @@ def _load_leaf(path: str, fname: str, name: str | None, tmpl: torch.Tensor) -> t
         arr = bits.view(torch.bfloat16).float().numpy()
     if name is None:
         t = torch.from_numpy(np.asarray(arr, np.int32).copy())
-    else:
+    elif surrogate:
         t = surrogate_leaf_from_jax(name, arr)
+    else:
+        t = tensor_from_numpy(arr)
     if tuple(t.shape) != tuple(tmpl.shape):
         raise ValueError(
             f"checkpoint/template shape mismatch at {fname}: "
@@ -180,7 +198,9 @@ def restore_checkpoint(path: str, template):
     train state).  Returns (state, meta)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
-    state = _map_state(template, lambda fname, name, t: _load_leaf(path, fname, name, t))
+    surrogate = _surrogate(template)
+    state = _map_state(template,
+                       lambda fname, name, t: _load_leaf(path, fname, name, t, surrogate))
     return state, meta
 
 

@@ -80,6 +80,37 @@ class ModelConfig:
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
+    def num_params(self) -> int:
+        """Analytic parameter count (embeddings included once if tied), as
+        the JAX package's ``ModelConfig.num_params``."""
+        d, hd = self.d_model, self.resolved_head_dim
+        h, k = self.num_heads, self.num_kv_heads
+        p = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        attn = 0
+        if self.family != "ssm":
+            attn = d * h * hd + 2 * d * k * hd + h * hd * d
+            if self.qkv_bias:
+                attn += (h + 2 * k) * hd
+        if self.family in ("dense", "vlm", "encdec", "hybrid"):
+            mlp = 3 * d * self.d_ff if self.family != "encdec" else 2 * d * self.d_ff
+        elif self.family == "moe":
+            mlp = (self.num_experts + self.num_shared_experts) * 3 * d * self.d_ff
+            mlp += d * self.num_experts  # router
+        else:
+            mlp = 0
+        ssm = 0
+        if self.family in ("ssm", "hybrid"):
+            di, n, r = self.ssm_d_inner, self.ssm_state, self.resolved_dt_rank
+            ssm = (d * 2 * di + di * self.ssm_conv + di * (r + 2 * n) + r * di + di * n
+                   + di + di * d)
+        p += self.num_layers * (attn + mlp + ssm + 2 * d)
+        if self.family == "encdec":
+            cross = d * h * hd + 2 * d * k * hd + h * hd * d
+            p += self.encoder_layers * (attn + 2 * d * self.d_ff + 2 * d)
+            p += self.num_layers * cross  # decoder cross-attention blocks
+        p += d  # final norm
+        return int(p)
+
     def reduced(self) -> "ModelConfig":
         """Same family/wiring, tiny dims — used by the CPU tests."""
         h = min(self.num_heads, 4)

@@ -3,7 +3,10 @@
 ``params_from_jax`` takes a JAX parameter pytree whose leaves were turned
 into numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 same nested dict of torch tensors, leaf names and layouts unchanged: the
-language models keep the JAX layout.
+language models keep the JAX layout.  ``lm_params_from_jax`` /
+``lm_params_to_jax`` carry an LM tree to the flat dict the port's train
+step, optimizer and checkpoints take (``layers.ssm.x_proj``: the pytree
+path joined by dots) and back.
 
 The CNN surrogates do not: their convolution weights are in PyTorch's layout
 (:mod:`repro_torch.models.cnn`).  ``surrogate_params_from_jax`` and
@@ -26,7 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.models.lm import flat_params, nested_params
+
 __all__ = ["params_from_jax", "tensor_from_numpy", "tensor_to_numpy",
+           "lm_params_from_jax", "lm_params_to_jax", "is_surrogate_params",
            "from_jax_layout", "to_jax_layout",
            "surrogate_leaf_from_jax", "surrogate_leaf_to_jax",
            "surrogate_params_from_jax", "surrogate_params_to_jax"]
@@ -53,6 +59,32 @@ def params_from_jax(tree, device, dtype: torch.dtype | None = None):
     if dtype is not None and t.is_floating_point():
         t = t.to(dtype)
     return t.to(device)
+
+
+def lm_params_from_jax(tree, device, dtype: torch.dtype | None = None
+                       ) -> dict[str, torch.Tensor]:
+    """JAX LM params (numpy leaves) -> the port's flat dict on ``device``,
+    each leaf named by its pytree path joined with dots."""
+    return flat_params(params_from_jax(tree, device, dtype))
+
+
+def lm_params_to_jax(flat) -> dict:
+    """The port's flat LM dict -> the JAX tree of numpy leaves."""
+    return nested_params({name: tensor_to_numpy(t) for name, t in flat.items()})
+
+
+def is_surrogate_params(names) -> bool:
+    """Whether flat leaf names are a CNN surrogate's (``enc.<i>.w``,
+    ``dec.<i>.b``, ``head.<leaf>``), whose convolution kernels the port lays
+    out unlike JAX; a language model's leaves keep the JAX layout."""
+    def surrogate(name):
+        part, _, rest = name.partition(".")
+        if part == "head":
+            return "." not in rest
+        i, _, leaf = rest.partition(".")
+        return part in ("enc", "dec") and i.isdigit() and leaf in ("w", "b")
+    names = list(names)
+    return bool(names) and all(map(surrogate, names))
 
 
 def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:

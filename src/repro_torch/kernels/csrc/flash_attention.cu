@@ -84,10 +84,12 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int HD, typename T>
+// kLse: write each query row's log-sum-exp (training); serving's
+// instantiation has no code for it.
+template <int HD, typename T, bool kLse>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int group,
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse, int group,
                  int seq_q, int seq_k, int causal, int window, float scale) {
   constexpr int kDimsPerLane = (HD + 31) / 32;
   __shared__ float qs[kBlockQ][HD];
@@ -193,28 +195,33 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = lane + 32 * i;
       if (d < HD) ob[static_cast<size_t>(qi) * HD + d] = from_f32<T>(acc[r][i] / denom);
     }
+    if (kLse && lane == 0) {
+      lse[static_cast<size_t>(bh) * seq_q + qi] = m[r] + logf(denom);
+    }
   }
 }
 
 template <int HD, typename T>
-void launch(const void* q, const void* k, const void* v, void* o, int b, int h,
+void launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int h,
             int kh, int sq, int sk, int causal, int window, float scale,
             cudaStream_t stream) {
   const dim3 grid((sq + kBlockQ - 1) / kBlockQ, b * h);
-  flash_fwd_kernel<HD, T><<<grid, kWarps * 32, 0, stream>>>(
+  auto* kernel =
+      lse != nullptr ? &flash_fwd_kernel<HD, T, true> : &flash_fwd_kernel<HD, T, false>;
+  kernel<<<grid, kWarps * 32, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), h / kh, sq, sk, causal, window, scale);
+      static_cast<T*>(o), lse, h / kh, sq, sk, causal, window, scale);
 }
 
 template <typename T>
 bool dispatch_hd(int hd, const void* q, const void* k, const void* v, void* o,
-                 int b, int h, int kh, int sq, int sk, int causal, int window,
+                 float* lse, int b, int h, int kh, int sq, int sk, int causal, int window,
                  float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: launch<16, T>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream); return true;
-    case 32: launch<32, T>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream); return true;
-    case 64: launch<64, T>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream); return true;
-    case 128: launch<128, T>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream); return true;
+    case 16: launch<16, T>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream); return true;
+    case 32: launch<32, T>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream); return true;
+    case 64: launch<64, T>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream); return true;
+    case 128: launch<128, T>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream); return true;
     default: return false;
   }
 }
@@ -229,6 +236,7 @@ constexpr int kTcBlockM = kTcWarps * 16;  // query rows per block: one m16 tile 
 constexpr int kTcBlockN = 64;             // keys per tile
 constexpr int kTcStages = 2;              // ring of K/V tiles in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory of one block: the Q tile and the K/V ring, bf16.
 // Mirrored by repro_torch/kernels/flash_attention.py::tc_smem_bytes.
@@ -383,11 +391,11 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kTcThreads, HD <= 64 ? 4 : 2)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                    int group, int seq_q, int seq_k, int causal, int window,
+                    float* __restrict__ lse, int group, int seq_q, int seq_k, int causal, int window,
                     float scale_log2) {
   static_assert(HD % 16 == 0 && HD <= 128, "head dim: a multiple of k16 up to 128");
   constexpr int kChunks = HD / 8;
@@ -515,6 +523,10 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     l[r] += __shfl_xor_sync(kFull, l[r], 2);
     const float denom = fmaxf(l[r], 1e-30f);
     const int row = warp * 16 + g + 8 * r;
+    if (kLse && t == 0 && q0 + row < seq_q) {
+      // m and l are in base 2 of the scaled scores: lse = ln 2 * (m + log2 l)
+      lse[static_cast<size_t>(bh) * seq_q + q0 + row] = kLn2 * (m[r] + __log2f(denom));
+    }
 #pragma unroll
     for (int j = 0; j < kDTiles; ++j) {
       *reinterpret_cast<uint32_t*>(sq + swz<HD>(row, j) + 2 * t) =
@@ -535,12 +547,14 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 }
 
 template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int h, int kh,
+int launch_tc(const void* q, const void* k, const void* v, void* o, float* lse, int b, int h,
+              int kh,
               int sq, int sk, int causal, int window, float scale, cudaStream_t stream) {
   const int n_qt = (sq + kTcBlockM - 1) / kTcBlockM;
   if (n_qt > 65535) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int smem = tc_smem_bytes(HD);
-  auto kernel = flash_fwd_tc_kernel<HD>;
+  auto kernel =
+      lse != nullptr ? flash_fwd_tc_kernel<HD, true> : flash_fwd_tc_kernel<HD, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -548,19 +562,20 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int h
   }
   kernel<<<dim3(b * h, n_qt), kTcThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), h / kh, sq, sk,
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, h / kh, sq, sk,
       causal, window, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, int b, int h,
+int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, float* lse,
+                int b, int h,
                 int kh, int sq, int sk, int causal, int window, float scale,
                 cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch_tc<16>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream);
-    case 32: return launch_tc<32>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream);
-    case 64: return launch_tc<64>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream);
-    case 128: return launch_tc<128>(q, k, v, o, b, h, kh, sq, sk, causal, window, scale, stream);
+    case 16: return launch_tc<16>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream);
+    case 32: return launch_tc<32>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream);
+    case 64: return launch_tc<64>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream);
+    case 128: return launch_tc<128>(q, k, v, o, lse, b, h, kh, sq, sk, causal, window, scale, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -570,10 +585,13 @@ int dispatch_tc(int hd, const void* q, const void* k, const void* v, void* o, in
 extern "C" {
 
 // Launches on `stream` and returns the CUDA error (0 = launched): the
-// tensor-core kernel for bf16 (is_bf16), the SIMT kernel for f32.  The caller
+// tensor-core kernel for bf16 (is_bf16), the SIMT kernel for f32.  `lse`
+// (nullable, f32 [B, H, Sq]) receives each query row's log-sum-exp of the
+// scaled scores, natural log, for the backward (flash_attention_bwd.cu);
+// serving passes null and writes nothing more.  The caller
 // allocates o and validates shapes and alignment; bad arguments that reach
 // here return cudaErrorInvalidValue without a launch.
-int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                         int b, int h, int kh, int sq, int sk, int hd,
                         int causal, int window, int is_bf16, float scale,
                         void* stream) {
@@ -582,8 +600,9 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return dispatch_tc(hd, q, k, v, o, b, h, kh, sq, sk, causal, window, scale, st);
-  if (!dispatch_hd<float>(hd, q, k, v, o, b, h, kh, sq, sk, causal, window, scale, st)) {
+  float* const l = static_cast<float*>(lse);
+  if (is_bf16) return dispatch_tc(hd, q, k, v, o, l, b, h, kh, sq, sk, causal, window, scale, st);
+  if (!dispatch_hd<float>(hd, q, k, v, o, l, b, h, kh, sq, sk, causal, window, scale, st)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -73,6 +73,10 @@ constexpr int kThreads = 128;         // a block: 128 / L groups of L lanes
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSmem = 227 * 1024;  // an H100 block's dynamic shared memory
+// Steps between two checkpoints of h for the backward (selective_scan_bwd.cu
+// has the same kSeg; selective_scan.py::CKPT_STEPS mirrors it).
+constexpr int kSeg = 16;
+static_assert(kChunk % kSeg == 0 && kSeg % 16 == 0, "segments start at groups of L steps");
 static_assert(kChunk % 16 == 0, "a chunk holds whole groups of up to 16 steps");
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
@@ -133,7 +137,7 @@ constexpr size_t smem_bytes(int channels, int n, size_t elt) {
 
 struct Args {
   const void *u, *dt, *a, *b, *c, *d_skip;
-  void *y, *h_last;
+  void *y, *h_last, *hck;
   int bsz, seq, di, vec;
 };
 
@@ -219,13 +223,15 @@ __device__ __forceinline__ void reduce_scatter(float (&part)[L], int lane) {
   }
 }
 
-template <int N, int L, int K, typename T>
+// kCkpt: write the state entering each kSeg-step segment to hck (training);
+// the serving instantiation has no code for it.
+template <int N, int L, int K, typename T, bool kCkpt>
 __global__ void __launch_bounds__(kThreads)
 selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
                           const float* __restrict__ a, const T* __restrict__ bm,
                           const T* __restrict__ cm, const float* __restrict__ d_skip,
-                          float* __restrict__ y, float* __restrict__ h_last, int seq, int di,
-                          bool vec) {
+                          float* __restrict__ y, float* __restrict__ h_last,
+                          float* __restrict__ hck, int seq, int di, bool vec) {
   constexpr int P = N / L;                        // states a lane holds per channel
   constexpr int kParts = P >= 8 ? P / 4 : 1;      // C . h as chains of at most 4 FMAs
   constexpr int kChannels = block_channels(L, K);
@@ -326,6 +332,19 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     const T* const my_dt = r_dt + group * K;
 #pragma unroll (kUnroll)
     for (int j0 = 0; j0 < kChunk; j0 += L) {
+      if (kCkpt && (t0 + j0) % kSeg == 0 && t0 + j0 > 0 && t0 + j0 < seq) {
+        // the state entering segment (t0 + j0) / kSeg, for the backward
+        const int nseg = (seq + kSeg - 1) / kSeg;
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          if (dk + k < di) {
+            float* const hb = hck + ((static_cast<size_t>(blockIdx.y) * nseg + (t0 + j0) / kSeg) *
+                                         di + dk + k) * N + lane * P;
+#pragma unroll
+            for (int p = 0; p < P; ++p) hb[p] = h[k][p];
+          }
+        }
+      }
       float part[K][L];
 #pragma unroll
       for (int jj = 0; jj < L; ++jj) {
@@ -378,11 +397,11 @@ selective_scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
 }
 
-template <int N, int L, int K, typename T>
+template <int N, int L, int K, typename T, bool kCkpt>
 int launch(const Args& g, cudaStream_t stream) {
   constexpr int kChannels = block_channels(L, K);
   constexpr size_t kSmem = smem_bytes(kChannels, N, sizeof(T));
-  auto* kernel = &selective_scan_fwd_kernel<N, L, K, T>;
+  auto* kernel = &selective_scan_fwd_kernel<N, L, K, T, kCkpt>;
   if constexpr (kSmem > 48 * 1024) {
     // Above 48 KB a block must ask for its shared memory, once per device
     // and instantiation (the first launch comes before any graph capture).
@@ -403,7 +422,8 @@ int launch(const Args& g, cudaStream_t stream) {
       static_cast<const T*>(g.u), static_cast<const T*>(g.dt),
       static_cast<const float*>(g.a), static_cast<const T*>(g.b),
       static_cast<const T*>(g.c), static_cast<const float*>(g.d_skip),
-      static_cast<float*>(g.y), static_cast<float*>(g.h_last), g.seq, g.di, g.vec != 0);
+      static_cast<float*>(g.y), static_cast<float*>(g.h_last), static_cast<float*>(g.hck),
+      g.seq, g.di, g.vec != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -414,13 +434,18 @@ constexpr bool instantiated() {
          smem_bytes(block_channels(L, K), N, sizeof(T)) <= kMaxSmem;
 }
 
+template <int N, int L, int K, typename T>
+int launch_ckpt(const Args& g, cudaStream_t st) {
+  return g.hck != nullptr ? launch<N, L, K, T, true>(g, st) : launch<N, L, K, T, false>(g, st);
+}
+
 // K channels a lane, each with N / L states.
 template <int N, int L, typename T>
 int dispatch_k(int per_lane, const Args& g, cudaStream_t st) {
   switch (per_lane) {
-    case 1: if constexpr (instantiated<N, L, 1, T>()) return launch<N, L, 1, T>(g, st); break;
-    case 2: if constexpr (instantiated<N, L, 2, T>()) return launch<N, L, 2, T>(g, st); break;
-    case 4: if constexpr (instantiated<N, L, 4, T>()) return launch<N, L, 4, T>(g, st); break;
+    case 1: if constexpr (instantiated<N, L, 1, T>()) return launch_ckpt<N, L, 1, T>(g, st); break;
+    case 2: if constexpr (instantiated<N, L, 2, T>()) return launch_ckpt<N, L, 2, T>(g, st); break;
+    case 4: if constexpr (instantiated<N, L, 4, T>()) return launch_ckpt<N, L, 4, T>(g, st); break;
     default: break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
@@ -459,11 +484,13 @@ extern "C" {
 // 2 or 4) channels, each lane holding n / L states of each, at most 16 in
 // all; a block is 128 threads and 128 / L * K channels.  `vec` asks for
 // 16-byte copies, only when u, dt, b and c are 16-byte aligned and di and
-// seq * n are multiples of the vector width.  The caller allocates y and
-// h_last and validates shapes; bad arguments return cudaErrorInvalidValue
-// without a launch.
+// seq * n are multiples of the vector width.  `hck` (nullable, f32 [bsz,
+// ceil(seq / 16), di, n]) receives the state entering every 16-step segment
+// but the first, for the backward; serving passes null.  The caller
+// allocates y, h_last and hck and validates shapes; bad arguments return
+// cudaErrorInvalidValue without a launch.
 int selective_scan_fwd(const void* u, const void* dt, const void* a, const void* b,
-                       const void* c, const void* d_skip, void* y, void* h_last,
+                       const void* c, const void* d_skip, void* y, void* h_last, void* hck,
                        int bsz, int seq, int di, int n, int lanes, int per_lane, int vec,
                        int is_bf16, void* stream) {
   if (bsz <= 0 || bsz > 65535 || seq <= 0 || di <= 0) {
@@ -477,7 +504,7 @@ int selective_scan_fwd(const void* u, const void* dt, const void* a, const void*
       return static_cast<int>(cudaErrorInvalidValue);
     }
   }
-  const Args g{u, dt, a, b, c, d_skip, y, h_last, bsz, seq, di, vec};
+  const Args g{u, dt, a, b, c, d_skip, y, h_last, hck, bsz, seq, di, vec};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch_n<__nv_bfloat16>(n, lanes, per_lane, g, st)
                  : dispatch_n<float>(n, lanes, per_lane, g, st);

@@ -1,15 +1,22 @@
-"""ctypes wrapper of the hand-written CUDA flash-attention kernel.
+"""ctypes wrappers of the hand-written CUDA flash-attention kernels.
 
-The kernel (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
+The forward (``csrc/flash_attention.cu``) replaces the JAX package's Pallas
 TPU kernel ``repro/kernels/flash_attention.py::flash_attention_kernel``: bf16
 runs on the tensor cores in 64-row query tiles over 64-key tiles, f32 on the
-CUDA cores.  It launches on PyTorch's current stream, allocates nothing and
-does not synchronise; this wrapper validates the inputs, allocates the output
-and raises if the launch is refused.  ``launches`` counts successful launches.
+CUDA cores.  The backward (``csrc/flash_attention_bwd.cu``) has no Pallas
+original; it computes the gradient of the plain attention from the row
+log-sum-exp the forward writes when autograd will need it.  Both launch on
+PyTorch's current stream, allocate nothing and do not synchronise; these
+wrappers validate the inputs, allocate outputs and scratch and raise if a
+launch is refused.  ``flash_attention`` is a ``torch.autograd.Function``
+where grad is enabled and an input requires it, and the plain forward call
+otherwise (serving: no log-sum-exp is written).  ``launches`` and
+``bwd_launches`` count successful forward and backward launches.
 
-``key_tile_range`` and ``tile_needs_mask`` mirror the bf16 kernel's loop
-bounds and mask test in pure Python, so the CPU tests can hold them against
-the mask; ``tc_smem_bytes`` mirrors its shared-memory size.
+``key_tile_range``, ``tile_needs_mask`` and ``query_tile_range`` mirror the
+kernels' loop bounds and mask test in pure Python, so the CPU tests can hold
+them against the mask; ``tc_smem_bytes`` mirrors the bf16 forward's
+shared-memory size.
 """
 from __future__ import annotations
 
@@ -20,8 +27,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention", "launches", "HEAD_DIMS", "DTYPES", "BLOCK_Q", "BLOCK_K",
-           "key_tile_range", "tile_needs_mask", "tc_smem_bytes"]
+__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "launches",
+           "bwd_launches", "HEAD_DIMS", "DTYPES", "BLOCK_Q", "BLOCK_K", "BWD_BLOCK_Q",
+           "BWD_BLOCK_K", "key_tile_range", "tile_needs_mask", "query_tile_range",
+           "tc_smem_bytes"]
 
 #: Head dims and dtypes the kernel is instantiated for (template parameters).
 HEAD_DIMS = (16, 32, 64, 128)
@@ -30,10 +39,18 @@ DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64
 BLOCK_K = 64
 
-#: Kernel launches since import (or since a caller last set it to 0).
+#: The backward's query rows and keys per tile (``kBlockQ``, ``kBlockK`` in
+#: ``csrc/flash_attention_bwd.cu``).
+BWD_BLOCK_Q = 16
+BWD_BLOCK_K = 32
+
+#: Forward and backward launches since import (or since a caller last set
+#: them to 0).
 launches = 0
+bwd_launches = 0
 
 _fn = None
+_bwd_fn = None
 
 
 def _kernel():
@@ -41,7 +58,7 @@ def _kernel():
     if _fn is None:
         lib = ctypes.CDLL(str(_build.build("flash_attention")))
         fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.flash_attention_error_string
@@ -49,6 +66,21 @@ def _kernel():
         err.restype = ctypes.c_char_p
         _fn = (fn, err)
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = ctypes.CDLL(str(_build.build("flash_attention_bwd")))
+        fn = lib.flash_attention_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = lib.flash_attention_bwd_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _bwd_fn = (fn, err)
+    return _bwd_fn
 
 
 def key_tile_range(q0: int, sq: int, sk: int, causal: bool, window: int, *,
@@ -70,6 +102,19 @@ def tile_needs_mask(q0: int, kt: int, sq: int, sk: int, causal: bool, window: in
     q_last = min(q0 + block_q, sq) - 1
     return (kt + block_k > sk or (causal and kt + block_k - 1 > q0)
             or (window > 0 and q_last - kt >= window))
+
+
+def query_tile_range(k0: int, sq: int, sk: int, causal: bool, window: int, *,
+                     block_q: int = BWD_BLOCK_Q, block_k: int = BWD_BLOCK_K
+                     ) -> tuple[int, int]:
+    """Query rows ``[begin, end)`` that can see a key of the tile ``[k0, k0 +
+    block_k)``, ``begin`` a multiple of ``block_q``: the rows the backward's
+    dK/dV block visits.  Mirrors ``query_tile_range`` in
+    ``csrc/flash_attention_bwd.cu``; change the two together."""
+    k_last = min(k0 + block_k, sk) - 1
+    begin = (min(k0, sq) // block_q) * block_q if causal else 0
+    end = min(sq, k_last + window) if window > 0 else sq
+    return begin, end
 
 
 def tc_smem_bytes(hd: int) -> int:
@@ -109,23 +154,82 @@ def _check(q, k, v, window):
         raise ValueError(f"window must be >= 0, got {window}")
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
-    """q [B, H, Sq, hd]; k/v [B, K, Sk, hd] with K | H, all contiguous,
-    16-byte aligned and on one CUDA device, f32 or bf16.  Returns
-    [B, H, Sq, hd] in q's dtype."""
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        with_lse: bool = False):
+    """The forward kernel: returns (o [B, H, Sq, hd] in q's dtype, and with
+    ``with_lse`` each query row's log-sum-exp of the scaled scores, f32
+    [B, H, Sq], else None)."""
     global launches
     _check(q, k, v, window)
     fn, err_str = _kernel()
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  b, h, kh, sq, sk, hd, int(causal), int(window),
                  int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
     if err:
         raise RuntimeError(
             f"flash_attention launch failed: {err_str(err).decode()} ({err})")
     launches += 1
-    return o
+    return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0):
+    """The backward kernels: (dq, dk, dv) of ``flash_attention_fwd``'s output
+    ``o`` for the cotangent ``do``, in q's dtype; dk and dv summed over each
+    kv head's group of query heads."""
+    global bwd_launches
+    _check(q, k, v, window)
+    do = do.contiguous()
+    if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape or \
+            lse.shape != q.shape[:3] or do.device != q.device:
+        raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} {do.dtype} / lse "
+                         f"{tuple(lse.shape)} do not fit q {tuple(q.shape)} {q.dtype}")
+    fn, err_str = _bwd_kernel()
+    b, h, sq, hd = q.shape
+    kh, sk = k.shape[1], k.shape[2]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, h, kh, sq, sk, hd, int(causal), int(window),
+                 int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
+    if err:
+        raise RuntimeError(
+            f"flash_attention_bwd launch failed: {err_str(err).decode()} ({err})")
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = (causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B, H, Sq, hd]; k/v [B, K, Sk, hd] with K | H, all contiguous,
+    16-byte aligned and on one CUDA device, f32 or bf16.  Returns
+    [B, H, Sq, hd] in q's dtype, differentiable through the backward kernels
+    where grad is enabled and an input requires it."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window)
+    return flash_attention_fwd(q, k, v, causal=causal, window=window)[0]

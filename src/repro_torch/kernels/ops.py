@@ -2,9 +2,11 @@
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the kernel's plain
 version in ``ref.py``.  There is no fallback: a kernel that cannot take a
-CUDA input raises.  The count of kernel launches lives on each kernel's
-wrapper (``repro_torch.kernels.flash_attention.launches``,
-``.selective_scan.launches``, ``.rmsnorm.launches``).
+CUDA input raises.  On the card each op is differentiable through its
+backward kernel; on the CPU through autograd of the plain version.  The
+counts of kernel launches live on each kernel's wrapper
+(``repro_torch.kernels.flash_attention.launches`` and ``.bwd_launches``,
+likewise for ``.selective_scan`` and ``.rmsnorm``).
 """
 from __future__ import annotations
 

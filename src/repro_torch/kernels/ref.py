@@ -10,7 +10,8 @@ import math
 
 import torch
 
-__all__ = ["NEG_INF", "attention_ref", "selective_scan_ref", "rms_norm_ref"]
+__all__ = ["NEG_INF", "attention_ref", "selective_scan_ref", "rms_norm_ref",
+           "attention_ref_bwd", "selective_scan_ref_bwd", "rms_norm_ref_bwd"]
 
 #: Finite mask value, as in the JAX kernels: ``-inf`` would turn
 #: ``exp(m_prev - m_new)`` on a still fully masked tile into NaN.
@@ -64,3 +65,41 @@ def rms_norm_ref(x, scale, eps: float = 1e-6):
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + scale.float())).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the backward kernels
+# ---------------------------------------------------------------------------
+
+
+def attention_ref_bwd(q, k, v, do, *, causal: bool = True, window: int = 0):
+    """(dq, dk, dv): autograd through :func:`attention_ref`, in the inputs'
+    dtype."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_ref(*leaves, causal=causal, window=window)
+        return torch.autograd.grad(out, leaves, do)
+
+
+def selective_scan_ref_bwd(u, dt, a, b_ssm, c_ssm, d_skip, dy):
+    """(du, ddt, da, db, dc, dd_skip) of y: autograd through
+    :func:`selective_scan_ref`, in the inputs' dtypes."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True)
+                  for t in (u, dt, a, b_ssm, c_ssm, d_skip)]
+        y, _ = selective_scan_ref(*leaves)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def rms_norm_ref_bwd(x, scale, dy, eps: float = 1e-6):
+    """(dx, ds) of :func:`rms_norm_ref` for the cotangent ``dy``: the JAX
+    package's custom VJP (``repro/models/layers.py::_rms_norm_bwd``),
+    ``dx = r g - x r^3 mean(x g)`` with ``g = dy (1 + scale)`` in f32, cast to
+    x's dtype, and ``ds = sum over rows of dy x r`` in scale's dtype."""
+    xf = x.float()
+    r = torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
+    g = dy.float() * (1.0 + scale.float())
+    mean_xg = (xf * g).mean(dim=-1, keepdim=True)
+    dx = r * g - xf * (r ** 3) * mean_xg
+    ds = (dy.float() * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), ds.to(scale.dtype)

@@ -1,14 +1,18 @@
-"""ctypes wrapper of the hand-written CUDA RMSNorm kernel.
+"""ctypes wrappers of the hand-written CUDA RMSNorm kernels.
 
-The kernel (``csrc/rms_norm.cu``) replaces the JAX package's Pallas TPU
-kernel ``repro/kernels/rmsnorm.py::rms_norm_kernel``.  It launches on
-PyTorch's current stream, allocates nothing and does not synchronise; this
-wrapper validates the inputs, allocates the output and raises if the launch
-is refused.  ``launches`` counts successful launches.
+The forward (``csrc/rms_norm.cu``) replaces the JAX package's Pallas TPU
+kernel ``repro/kernels/rmsnorm.py::rms_norm_kernel``.  The backward
+(``csrc/rms_norm_bwd.cu``) has no Pallas original: it computes the JAX
+package's custom VJP of the plain ``rms_norm`` (``repro/models/layers.py::
+_rms_norm_bwd``), dx in x's dtype and ds summed over rows in scale's dtype.
+Both launch on PyTorch's current stream, allocate nothing and do not
+synchronise; these wrappers validate the inputs, allocate outputs and
+scratch and raise if a launch is refused.  ``rms_norm`` is a
+``torch.autograd.Function`` where grad is enabled and an input requires it.
+``launches`` and ``bwd_launches`` count successful launches.
 
-``launch_shape`` picks the kernel's instantiation (vector loads, the row held
-in registers or read twice, the grid) in pure Python, so the CPU tests reach
-it.
+``launch_shape`` and ``bwd_launch_shape`` pick the kernels' instantiations
+and grids in pure Python, so the CPU tests reach them.
 """
 from __future__ import annotations
 
@@ -20,8 +24,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["rms_norm", "launches", "DTYPES", "MAX_D", "PER_LANE", "WARPS",
-           "ROWS_PER_WARP", "MAX_BLOCKS", "LaunchShape", "launch_shape"]
+__all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "launches", "bwd_launches", "DTYPES",
+           "MAX_D", "PER_LANE", "WARPS", "ROWS_PER_WARP", "MAX_BLOCKS", "BWD_MAX_BLOCKS",
+           "LaunchShape", "launch_shape", "BwdShape", "bwd_launch_shape"]
 
 #: dtypes the kernel is instantiated for, for x and (independently) scale.
 DTYPES = (torch.float32, torch.bfloat16)
@@ -40,10 +45,19 @@ WARPS = 4
 ROWS_PER_WARP = 2
 MAX_BLOCKS = 528
 
-#: Kernel launches since import (or since a caller last set it to 0).
+#: The backward's grid: at most two blocks an SM (132 SMs), each writing one
+#: f32 partial row of ds.
+BWD_MAX_BLOCKS = 264
+#: Shared memory a backward block may use: one f32 row of ds a warp.
+_BWD_SMEM = 227 * 1024
+
+#: Forward and backward launches since import (or since a caller last set
+#: them to 0).
 launches = 0
+bwd_launches = 0
 
 _fn = None
+_bwd_fn = None
 
 
 class LaunchShape(NamedTuple):
@@ -61,6 +75,22 @@ def launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True) -> LaunchS
     per_lane = next((v for v in PER_LANE if v >= need), 0) if vec else 0
     return LaunchShape(vec, per_lane,
                        min(MAX_BLOCKS, math.ceil(rows / (WARPS * ROWS_PER_WARP))))
+
+
+class BwdShape(NamedTuple):
+    vec: bool    # 16-byte loads; False: scalar loads
+    warps: int   # warps of a block, one row each at a time
+    blocks: int  # grid, and the rows of the ds partials
+
+
+def bwd_launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True) -> BwdShape:
+    """The backward's instantiation and grid for ``rows`` rows of ``d``
+    elements of ``x_dtype``.  ``aligned``: x, scale, dy and dx start on 16
+    bytes.  A block's warps each keep an f32 row of ds in shared memory, so
+    wide rows take fewer warps."""
+    vec = aligned and d % (16 // x_dtype.itemsize) == 0
+    warps = next(w for w in (WARPS, 2, 1) if w * d * 4 <= _BWD_SMEM or w == 1)
+    return BwdShape(vec, warps, min(BWD_MAX_BLOCKS, math.ceil(rows / warps)))
 
 
 def _kernel():
@@ -96,10 +126,76 @@ def _check(x, scale):
         raise ValueError(f"unsupported shape x {tuple(x.shape)}")
 
 
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = ctypes.CDLL(str(_build.build("rms_norm_bwd")))
+        fn = lib.rms_norm_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        err = lib.rms_norm_bwd_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _bwd_fn = (fn, err)
+    return _bwd_fn
+
+
+def rms_norm_bwd(x, scale, dy, *, eps: float = 1e-6):
+    """The backward kernels: (dx in x's dtype, ds [d] in scale's dtype) of
+    ``rms_norm`` for the cotangent ``dy``."""
+    global bwd_launches
+    _check(x, scale)
+    dy = dy.contiguous()
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not fit x "
+                         f"{tuple(x.shape)} {x.dtype}")
+    fn, err_str = _bwd_kernel()
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    ds = torch.empty_like(scale)
+    aligned = not any(t.data_ptr() % 16 for t in (x, scale, dy, dx))
+    shape = bwd_launch_shape(rows, d, x.dtype, aligned=aligned)
+    partial = torch.empty((shape.blocks, d), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                 partial.data_ptr(), ds.data_ptr(), rows, d,
+                 int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+                 int(shape.vec), shape.warps, shape.blocks, eps, stream)
+    if err:
+        raise RuntimeError(f"rms_norm_bwd launch failed: {err_str(err).decode()} ({err})")
+    bwd_launches += 1
+    return dx, ds
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm_fwd(x, scale, eps=eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, ds = rms_norm_bwd(x, scale, dy, eps=ctx.eps)
+        return dx, ds, None
+
+
 def rms_norm(x, scale, *, eps: float = 1e-6):
     """x [..., d] and scale [d], each f32 or bf16, contiguous on one CUDA
     device.  Returns ``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in x's
-    dtype, with the arithmetic in f32."""
+    dtype, with the arithmetic in f32; differentiable through the backward
+    kernels where grad is enabled and an input requires it."""
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNorm.apply(x, scale, eps)
+    return rms_norm_fwd(x, scale, eps=eps)
+
+
+def rms_norm_fwd(x, scale, *, eps: float = 1e-6):
+    """The forward kernel alone."""
     global launches
     _check(x, scale)
     fn, err_str = _kernel()

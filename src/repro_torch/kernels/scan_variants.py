@@ -88,7 +88,7 @@ def finish_builds(procs: dict) -> dict:
 
 def current_entry(lib):
     fn = lib.selective_scan_fwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -111,6 +111,7 @@ def runner(fn, args, plan=None):
     bf16 = int(u.dtype == torch.bfloat16)
     ptrs = [t.data_ptr() for t in (u, dt, a, b, c, d, y, h)]
     if plan is not None:
+        ptrs.append(None)  # no h checkpoints: serving's call
         vec = ss.launch_plan(bsz, s, di, n, u.dtype).vec
         extra = [bsz, s, di, n, plan[0], plan[1], int(vec), bf16]
     else:

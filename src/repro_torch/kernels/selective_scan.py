@@ -1,10 +1,16 @@
-"""ctypes wrapper of the hand-written CUDA selective-scan kernel.
+"""ctypes wrappers of the hand-written CUDA selective-scan kernels.
 
-The kernel (``csrc/selective_scan.cu``) replaces the JAX package's Pallas
-TPU kernel ``repro/kernels/selective_scan.py::selective_scan_kernel``.  It
-launches on PyTorch's current stream, allocates nothing and does not
-synchronise; this wrapper validates the inputs, allocates the outputs and
-raises if the launch is refused.  ``launches`` counts successful launches.
+The forward (``csrc/selective_scan.cu``) replaces the JAX package's Pallas
+TPU kernel ``repro/kernels/selective_scan.py::selective_scan_kernel``.  The
+backward (``csrc/selective_scan_bwd.cu``) has no Pallas original: it
+computes the gradient of y of the plain scan, recomputing h from the
+checkpoints the forward writes every ``CKPT_STEPS`` steps when autograd will
+need them.  Both launch on PyTorch's current stream, allocate nothing and do
+not synchronise; these wrappers validate the inputs, allocate outputs and
+scratch and raise if a launch is refused.  ``selective_scan`` is a
+``torch.autograd.Function`` where grad is enabled and an input requires it
+(``h_last`` is not differentiable: no training path reads it).
+``launches`` and ``bwd_launches`` count successful launches.
 
 ``launch_plan`` picks the kernel's plan for a shape (lanes per channel,
 channels per block, the grid and the shared memory) in pure Python, so the
@@ -20,8 +26,9 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["selective_scan", "launches", "STATES", "DTYPES", "CHUNK", "THREADS", "SMS",
-           "PLANS", "ScanPlan", "launch_plan", "plan_fits", "block_channels", "smem_bytes"]
+__all__ = ["selective_scan", "selective_scan_fwd", "selective_scan_bwd", "launches",
+           "bwd_launches", "CKPT_STEPS", "bwd_smem_bytes", "STATES", "DTYPES", "CHUNK",
+           "THREADS", "SMS", "PLANS", "ScanPlan", "launch_plan", "plan_fits", "block_channels", "smem_bytes"]
 
 #: State sizes N and input dtypes the kernel is instantiated for.
 STATES = (4, 8, 16)
@@ -42,10 +49,16 @@ SMS = 132
 #: keep K = 2 and the same step of L.
 PLANS = {16: ((4, 2), (8, 2)), 8: ((2, 2), (4, 2)), 4: ((2, 2), (4, 2))}
 
-#: Kernel launches since import (or since a caller last set it to 0).
+#: Steps between the forward's checkpoints of h (``kSeg`` in both sources).
+CKPT_STEPS = 16
+
+#: Forward and backward launches since import (or since a caller last set
+#: them to 0).
 launches = 0
+bwd_launches = 0
 
 _fn = None
+_bwd_fn = None
 _sms = {}
 
 
@@ -77,6 +90,13 @@ def smem_bytes(channels: int, n: int, itemsize: int) -> int:
     return 2 * CHUNK * n * 4 + 2 * 2 * CHUNK * (channels + n) * itemsize
 
 
+def bwd_smem_bytes(n: int, lanes: int, per_lane: int) -> int:
+    """A backward block's dynamic shared memory (``bwd_smem_bytes`` in
+    ``csrc/selective_scan_bwd.cu``): a segment's h, [CKPT_STEPS][K * N / L]
+    [THREADS] f32, and per-warp sums of dB and dC, [2][4][CKPT_STEPS][N]."""
+    return (CKPT_STEPS * per_lane * (n // lanes) * THREADS + 2 * 4 * CKPT_STEPS * n) * 4
+
+
 def launch_plan(bsz: int, seq: int, di: int, n: int, dtype=torch.bfloat16, *,
                 aligned: bool = True, sms: int = SMS) -> ScanPlan:
     """The kernel's plan for u [bsz, seq, di] of ``dtype`` and N = ``n``
@@ -102,13 +122,27 @@ def _kernel():
     if _fn is None:
         lib = ctypes.CDLL(str(_build.build("selective_scan")))
         fn = lib.selective_scan_fwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.selective_scan_error_string
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
         _fn = (fn, err)
     return _fn
+
+
+def _bwd_kernel():
+    global _bwd_fn
+    if _bwd_fn is None:
+        lib = ctypes.CDLL(str(_build.build("selective_scan_bwd")))
+        fn = lib.selective_scan_bwd
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err = lib.selective_scan_bwd_error_string
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _bwd_fn = (fn, err)
+    return _bwd_fn
 
 
 def _device_sms(device) -> int:
@@ -148,10 +182,11 @@ def _check(u, dt, a, b_ssm, c_ssm, d_skip):
     return launch_plan(bsz, s, di, n, u.dtype, aligned=aligned, sms=_device_sms(u.device))
 
 
-def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
-    """u, dt [B, S, DI] and b/c [B, S, N] in f32 or bf16 (one dtype); a
-    [DI, N] and d_skip [DI] in f32; all contiguous on one CUDA device.
-    Starts from h=0.  Returns (y [B, S, DI] f32, h_last [B, DI, N] f32)."""
+def selective_scan_fwd(u, dt, a, b_ssm, c_ssm, d_skip, *, checkpoints: bool = False):
+    """The forward kernel: (y [B, S, DI] f32, h_last [B, DI, N] f32, and
+    with ``checkpoints`` the states entering each ``CKPT_STEPS``-step
+    segment, f32 [B, ceil(S / CKPT_STEPS), DI, N] (segment 0 starts from 0
+    and is not written), else None)."""
     global launches
     plan = _check(u, dt, a, b_ssm, c_ssm, d_skip)
     fn, err_str = _kernel()
@@ -159,14 +194,78 @@ def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
     n = a.shape[1]
     y = torch.empty((bsz, s, di), dtype=torch.float32, device=u.device)
     h_last = torch.empty((bsz, di, n), dtype=torch.float32, device=u.device)
+    hck = (torch.empty((bsz, -(-s // CKPT_STEPS), di, n), dtype=torch.float32,
+                       device=u.device) if checkpoints else None)
     with torch.cuda.device(u.device):
         stream = torch.cuda.current_stream(u.device).cuda_stream
         err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b_ssm.data_ptr(),
                  c_ssm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                 None if hck is None else hck.data_ptr(),
                  bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
                  int(u.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(
             f"selective_scan launch failed: {err_str(err).decode()} ({err})")
     launches += 1
-    return y, h_last
+    return y, h_last, hck
+
+
+def selective_scan_bwd(u, dt, a, b_ssm, c_ssm, d_skip, hck, dy):
+    """The backward kernels: (du, ddt, da, db, dc, dd_skip) of y for the
+    cotangent ``dy`` [B, S, DI], from ``selective_scan_fwd``'s checkpoints
+    ``hck``; du, ddt, db, dc in the inputs' dtype, da and dd_skip f32."""
+    global bwd_launches
+    plan = _check(u, dt, a, b_ssm, c_ssm, d_skip)
+    bsz, s, di = u.shape
+    n = a.shape[1]
+    dy = dy.contiguous().float()
+    if dy.shape != u.shape or dy.device != u.device or hck.dtype != torch.float32 or \
+            hck.shape != (bsz, -(-s // CKPT_STEPS), di, n) or not hck.is_contiguous():
+        raise ValueError(f"dy {tuple(dy.shape)} or checkpoints {tuple(hck.shape)} do not "
+                         f"fit u {tuple(u.shape)}, N={n}")
+    fn, err_str = _bwd_kernel()
+    du, ddt = torch.empty_like(u), torch.empty_like(dt)
+    db, dc = torch.empty_like(b_ssm), torch.empty_like(c_ssm)
+    da, dd = torch.empty_like(a), torch.empty_like(d_skip)
+    f32 = dict(dtype=torch.float32, device=u.device)
+    db_part = torch.empty((plan.grid[0], bsz, s, n), **f32)
+    dc_part = torch.empty((plan.grid[0], bsz, s, n), **f32)
+    da_part = torch.empty((bsz, di, n), **f32)
+    dd_part = torch.empty((bsz, di), **f32)
+    with torch.cuda.device(u.device):
+        stream = torch.cuda.current_stream(u.device).cuda_stream
+        err = fn(*(t.data_ptr() for t in (
+                     u, dt, a, b_ssm, c_ssm, d_skip, hck, dy, du, ddt, da, db, dc, dd,
+                     db_part, dc_part, da_part, dd_part)),
+                 bsz, s, di, n, plan.lanes, plan.per_lane, int(u.dtype == torch.bfloat16),
+                 stream)
+    if err:
+        raise RuntimeError(
+            f"selective_scan_bwd launch failed: {err_str(err).decode()} ({err})")
+    bwd_launches += 1
+    return du, ddt, da, db, dc, dd
+
+
+class _SelectiveScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, u, dt, a, b_ssm, c_ssm, d_skip):
+        y, h_last, hck = selective_scan_fwd(u, dt, a, b_ssm, c_ssm, d_skip, checkpoints=True)
+        ctx.save_for_backward(u, dt, a, b_ssm, c_ssm, d_skip, hck)
+        ctx.mark_non_differentiable(h_last)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, _dh_last):
+        return selective_scan_bwd(*ctx.saved_tensors, dy)
+
+
+def selective_scan(u, dt, a, b_ssm, c_ssm, d_skip):
+    """u, dt [B, S, DI] and b/c [B, S, N] in f32 or bf16 (one dtype); a
+    [DI, N] and d_skip [DI] in f32; all contiguous on one CUDA device.
+    Starts from h=0.  Returns (y [B, S, DI] f32, h_last [B, DI, N] f32), y
+    differentiable through the backward kernels where grad is enabled and an
+    input requires it."""
+    args = (u, dt, a, b_ssm, c_ssm, d_skip)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _SelectiveScan.apply(*args)
+    return selective_scan_fwd(*args)[:2]

@@ -1,0 +1,318 @@
+"""Training launcher: the SOLAR plan-and-load pipeline feeding a language
+model's training step, with checkpoints; and plan artifacts without training.
+
+    # train (the default subcommand; bare flags work too)
+    PYTHONPATH=src python -m repro_torch.launch.train train --arch qwen2-0.5b \
+        --reduced --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --seq-len 2048 --nodes 2 --local-batch 5 --steps 10      # on the card
+
+    # precompute / inspect plan artifacts without training
+    PYTHONPATH=src python -m repro_torch.launch.train plan --loader solar \
+        --num-samples 32768 --nodes 8 --local-batch 32 --buffer 3072 \
+        --epochs 6 --out /tmp/solar.plan.npz
+    PYTHONPATH=src python -m repro_torch.launch.train plan --inspect /tmp/solar.plan.npz
+
+The counterpart of the JAX package's ``launch/train.py`` (``run_train``,
+``run_plan``) for the dense, ssm and hybrid families, built on the port's own
+``core`` and ``data`` copies.  A synthetic token store (int32 rows of
+``seq_len + 1``, random from the seed) is created at ``--data`` on first use;
+each planned step's global batch, padded to the plan's capacity with
+zero-weight rows, is split into ``grad_accum`` microbatches.  The model
+starts from ``init_lm`` with seed 0.  Runs on the card unless ``--device
+cpu`` is given; there, attention, the selective scan and RMSNorm go through
+the hand-written kernels, forward and backward.  The ``distributed`` and
+``stream`` subcommands (multi-process runtime, streaming ingestion) are not
+ported yet.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+
+import numpy as np
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config
+from repro_torch.data import (
+    STRATEGIES,
+    DatasetSpec,
+    LoaderSpec,
+    backend_names,
+    build_pipeline,
+    build_store,
+)
+from repro_torch.models import lm
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+from repro_torch.train.trainer import Trainer
+
+__all__ = ["build_parser", "loader_spec", "make_batch_fn", "make_step", "train",
+           "run_plan", "main"]
+
+#: The initial parameters' seed (the JAX launcher's PRNGKey(0)).
+SEED = 0
+
+
+def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--loader", default="solar", choices=STRATEGIES)
+    ap.add_argument("--num-samples", type=int, default=2048)
+    ap.add_argument("--nodes", type=int, default=2)
+    ap.add_argument("--local-batch", type=int, default=8)
+    ap.add_argument("--buffer", type=int, default=512)
+    ap.add_argument("--epochs", type=int, default=4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--plan-cache", default=None,
+                    help="directory memoizing compiled plans by config hash")
+
+
+def _add_train_args(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--plan-path", default=None,
+                    help="explicit plan artifact: loaded when present, "
+                         "built + saved there when not")
+    ap.add_argument("--reduced", action="store_true",
+                    help="smoke-scale model (CPU-trainable)")
+    _add_pipeline_args(ap)
+    ap.add_argument("--backend", default="binary", choices=backend_names(),
+                    help="storage backend serving --data (created on first "
+                         "run in that layout)")
+    ap.add_argument("--data", default=None,
+                    help="dataset path (default: solar_tokens_torch.<backend> "
+                         "in the temporary directory)")
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--prefetch-depth", type=int, default=2,
+                    help="pipeline read-ahead in steps (0 = synchronous)")
+    ap.add_argument("--num-workers", type=int, default=4,
+                    help="I/O threads for schedule-driven chunk reads")
+    ap.add_argument("--peer-fetch", action="store_true",
+                    help="plan + execute the peer-fetch buffer tier "
+                         "(solar loader only)")
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=25)
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", default=None, help="default: cuda")
+
+
+def _add_plan_args(ap: argparse.ArgumentParser) -> None:
+    _add_pipeline_args(ap)
+    ap.add_argument("--out", default=None,
+                    help="save the compiled plan artifact here (loaded "
+                         "instead when it already exists; mutually "
+                         "exclusive with --plan-cache)")
+    ap.add_argument("--inspect", default=None, metavar="PATH",
+                    help="load an existing artifact and report on it "
+                         "instead of compiling")
+    ap.add_argument("--peer-fetch", action="store_true",
+                    help="plan the peer-fetch tier (priced from "
+                         "--sample-bytes, as no dataset is opened)")
+    ap.add_argument("--sample-bytes", type=int, default=4096,
+                    help="sample size used to price the peer tier when "
+                         "planning without a dataset; must match the "
+                         "dataset's real sample size for the artifact's "
+                         "config hash to line up with training")
+    ap.add_argument("--capacity-factor", type=float, default=None,
+                    help="padded-batch capacity factor (solar loader); 1.0 "
+                         "is the zero-padding regime where the peer tier "
+                         "carries traffic")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.train")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+    _add_train_args(sub.add_parser(
+        "train", help="train a model through the plan-first pipeline"))
+    _add_plan_args(sub.add_parser(
+        "plan", help="precompute or inspect a plan artifact (no training)"))
+    for name in ("distributed", "stream"):
+        sub.add_parser(name, help="not ported yet (ROADMAP.md Queue 1, slice 6)")
+    return ap
+
+
+# ---------------------------------------------------------------------------
+# plan
+# ---------------------------------------------------------------------------
+
+
+def _plan_report(schedule) -> dict:
+    """Stats, hash and per-node load of a plan."""
+    st = schedule.stats()
+    acc = {
+        r: {"node": r, "pfs_samples": 0, "misses": 0, "hits": 0,
+            "peer_fetches": 0, "peer_serves": 0}
+        for r in range(schedule.num_nodes)
+    }
+    for sp in schedule:
+        for npn in sp.nodes:
+            a = acc[npn.node]
+            a["pfs_samples"] += npn.pfs_samples
+            a["misses"] += npn.num_misses
+            a["hits"] += npn.num_hits
+            a["peer_fetches"] += npn.num_peer
+            for f in npn.peer_fetches:
+                acc[f.source]["peer_serves"] += 1
+    return {
+        "strategy": schedule.strategy,
+        "config_hash": schedule.config_hash,
+        "artifact_digest": schedule.artifact_digest(),
+        "num_nodes": schedule.num_nodes,
+        "local_batch": schedule.local_batch,
+        "capacity": schedule.capacity,
+        "buffer_size": schedule.buffer_size,
+        "num_epochs": len(schedule.epochs),
+        "num_steps": schedule.num_steps,
+        "stats": st.summary(),
+        "per_node": [acc[r] for r in sorted(acc)],
+    }
+
+
+def run_plan(args) -> dict:
+    """Compile (or load) a plan artifact and print its report."""
+    from repro_torch.core.costmodel import PeerCostModel, PFSCostModel
+    from repro_torch.core.plan import Schedule
+    from repro_torch.core.scheduler import SolarConfig
+    from repro_torch.data import plan
+
+    if args.inspect:
+        report = _plan_report(Schedule.load(args.inspect))
+        print(json.dumps(report, indent=1))
+        return report
+    # The cost-model shape make_planner derives from an open store, so a
+    # precomputed artifact's config hash matches a later train run whose
+    # dataset has --sample-bytes-sized samples.
+    peer_cost = None
+    if args.peer_fetch:
+        peer_cost = PeerCostModel(sample_bytes=args.sample_bytes,
+                                  pfs=PFSCostModel(sample_bytes=args.sample_bytes))
+    solar = None
+    if args.capacity_factor is not None and args.loader == "solar":
+        solar = SolarConfig(
+            num_nodes=args.nodes, local_batch=args.local_batch,
+            buffer_size=args.buffer, seed=args.seed,
+            capacity_factor=args.capacity_factor,
+            enable_peer=args.peer_fetch, peer_cost=peer_cost,
+        )
+        peer_cost = None  # carried by the solar config now
+    spec = LoaderSpec(
+        loader=args.loader, num_nodes=args.nodes, local_batch=args.local_batch,
+        num_epochs=args.epochs, buffer_size=args.buffer, seed=args.seed,
+        peer_fetch=args.peer_fetch, peer_cost=peer_cost, solar=solar,
+        plan_cache=args.plan_cache, plan_path=args.out,
+    )
+    report = _plan_report(plan(spec, num_samples=args.num_samples))
+    print(json.dumps(report, indent=1))
+    return report
+
+
+# ---------------------------------------------------------------------------
+# train
+# ---------------------------------------------------------------------------
+
+
+def loader_spec(args) -> LoaderSpec:
+    """The pipeline spec ``train`` runs."""
+    return LoaderSpec(
+        loader=args.loader, backend=args.backend, path=args.data,
+        num_nodes=args.nodes, local_batch=args.local_batch,
+        num_epochs=args.epochs, buffer_size=args.buffer, seed=args.seed,
+        collect_data=True, prefetch_depth=args.prefetch_depth,
+        num_workers=args.num_workers, peer_fetch=args.peer_fetch,
+        plan_cache=args.plan_cache, plan_path=args.plan_path,
+    )
+
+
+def make_batch_fn(cfg, capacity: int):
+    """StepBatch -> ``{"tokens", "labels", "weights"}`` numpy arrays: the
+    padded global batch of ``to_global``, each row ``seq_len + 1`` tokens
+    (mod the vocabulary) split into inputs and next-token labels."""
+    def make_batch(sb):
+        data, weights = sb.to_global(capacity)
+        return {"tokens": (data[:, :-1] % cfg.vocab_size).astype(np.int32),
+                "labels": (data[:, 1:] % cfg.vocab_size).astype(np.int32),
+                "weights": np.asarray(weights, np.float32)}
+
+    return make_batch
+
+
+def make_step(cfg, args):
+    """The launcher's optimizer config and training step on flat params
+    (``train_loss``'s 'auto' paths: the kernels on the card)."""
+    opt = AdamWConfig(lr=args.lr, total_steps=args.steps)
+
+    def loss_fn(p, b):
+        return lm.train_loss(lm.nested_params(p), b, cfg)
+
+    return opt, make_train_step(cfg, opt, loss_fn)
+
+
+def train(args, device=None, *, cfg=None) -> Trainer:
+    """Build the store, the pipeline and the model (``init_lm`` from
+    ``SEED``), train ``args.steps`` planned steps, and return the finished
+    Trainer.  ``cfg`` defaults to ``--arch`` (``reduced()`` with
+    ``--reduced``)."""
+    device = resolve_device(device if device is not None else args.device)
+    if cfg is None:
+        cfg = get_config(args.arch)
+        cfg = cfg.reduced() if args.reduced else cfg
+    lm.check_supported(cfg)
+    if args.data is None:
+        args.data = os.path.join(tempfile.gettempdir(), f"solar_tokens_torch.{args.backend}")
+    spec = loader_spec(args)
+    store = build_store(spec, create=True,
+                        dataset=DatasetSpec(args.num_samples, (args.seq_len + 1,), "<i4"),
+                        fill="random")
+    try:
+        loader = build_pipeline(spec, store=store)
+        params = lm.flat_params(lm.init_lm(cfg, seed=SEED, device=device))
+        opt, step = make_step(cfg, args)
+        state = init_train_state(params, opt)
+        skip = 0
+        if args.resume and args.checkpoint_dir:
+            state, skip = Trainer.try_restore(args.checkpoint_dir, state,
+                                              plan_hash=getattr(loader, "config_hash", None))
+            print(f"resuming from step {skip}")
+        trainer = Trainer(
+            loader=loader, step_fn=step, state=state,
+            make_batch=make_batch_fn(cfg, getattr(loader, "capacity", args.local_batch + 4)),
+            checkpoint_dir=args.checkpoint_dir, checkpoint_every=args.checkpoint_every,
+            skip_steps=skip, prefetch_depth=args.prefetch_depth,
+            num_workers=args.num_workers, device=device,
+        )
+        trainer.run(max_steps=args.steps)
+    finally:
+        store.close()
+    return trainer
+
+
+def run_train(args) -> Trainer:
+    trainer = train(args)
+    hist = trainer.metrics_history
+    for rec in hist[:: max(len(hist) // 10, 1)]:
+        print(f"step {rec['step']:5d} loss {rec['loss']:.4f}")
+    print(json.dumps(trainer.breakdown(), indent=1))
+    return trainer
+
+
+def main(argv=None):
+    argv = list(sys.argv[1:] if argv is None else argv)
+    # a bare flag list is the train subcommand; top-level help stays reachable
+    if argv and argv[0] not in ("train", "plan", "distributed", "stream", "-h", "--help"):
+        argv = ["train"] + argv
+    args = build_parser().parse_args(argv)
+    if args.cmd in ("distributed", "stream"):
+        raise NotImplementedError(
+            f"the {args.cmd!r} subcommand needs the multi-process runtime and "
+            "streaming ingestion, which are not ported yet (ROADMAP.md Queue 1, "
+            "slice 6)")
+    if args.cmd == "plan":
+        return run_plan(args)
+    return run_train(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Model building blocks on tensors: the serving subset of the JAX package's
-``models/layers.py`` (dense, sliding-window and Mamba-1 blocks).
+"""Model building blocks on tensors: the subset of the JAX package's
+``models/layers.py`` that the dense, sliding-window and Mamba-1 blocks use,
+for serving and training.
 
 Conventions follow the JAX package: activations ``x [B, S, D]``; attention
 internals head-major ``q [B, H, S, hd]``, ``k/v [B, K, S, hd]`` (GQA: K
@@ -12,10 +13,12 @@ widened to f32.
 switch.  'pallas' selects the hand-written CUDA kernel (the name carries
 over from the JAX package); 'auto' takes the kernel for CUDA inputs, which
 raises on an input it does not take, and the JAX package's plain choice for
-CPU inputs.
+CPU inputs.  Every path is differentiable: the kernels through their
+backward kernels, the plain ``rms_norm`` through the JAX package's custom
+VJP (cotangents in the input dtypes), the rest through autograd.
 
-Not ported yet (ROADMAP.md Queue 1): ``rms_norm``'s custom backward,
-``layer_norm``, sinusoidal positions, ``gelu_mlp`` and ``moe_layer``.
+Not ported yet (ROADMAP.md Queue 1): ``layer_norm``, sinusoidal positions,
+``gelu_mlp`` and ``moe_layer``.
 ``constrain`` has no counterpart: one card has no mesh to constrain to.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import NEG_INF, attention_ref, rms_norm_ref
+from repro_torch.kernels.ref import NEG_INF, attention_ref, rms_norm_ref, rms_norm_ref_bwd
 
 __all__ = [
     "rms_norm",
@@ -44,14 +47,31 @@ __all__ = [
 ]
 
 
+class _RMSNorm(torch.autograd.Function):
+    """The plain RMSNorm with the JAX package's custom VJP
+    (``repro/models/layers.py::rms_norm``): dx in x's dtype, ds in scale's."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return rms_norm_ref(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, ds = rms_norm_ref_bwd(x, scale, dy, ctx.eps)
+        return dx, ds, None
+
+
 def rms_norm(x, scale, eps: float = 1e-6, *, impl: str = "auto"):
     """``x * rsqrt(mean(x^2) + eps) * (1 + scale)`` in f32, cast to x's dtype.
-    Forward only.  impl: 'ref' | 'pallas' | 'auto' (see the module doc)."""
+    impl: 'ref' | 'pallas' | 'auto' (see the module doc)."""
     if impl == "pallas" or (impl == "auto" and x.is_cuda):
         return ops.rms_norm(x, scale, eps=eps)
     if impl not in ("ref", "auto"):
         raise ValueError(f"unknown rms_norm impl {impl!r}")
-    return rms_norm_ref(x, scale, eps)
+    return _RMSNorm.apply(x, scale, eps)
 
 
 def apply_rope(x, positions, theta: float = 1e4):

@@ -1,5 +1,5 @@
 """Decoder-only LM, dense, ssm (Mamba-1) and hybrid (Hymba) families: init,
-prefill and one decode step.
+the training loss, prefill and one decode step.
 
 The port of the JAX package's ``models/lm.py`` for those families.
 Parameters keep the JAX leaf names and layouts: per-layer leaves are stacked
@@ -12,11 +12,21 @@ Unlike the JAX package, whose arrays are immutable, ``prefill`` allocates the
 cache and ``decode_step`` writes each new position (and SSM state) into it in
 place and returns the same dict.
 
-In the ssm family the JAX code computes ``rms_norm(x, ln2)`` and discards it
-(Mamba-1 has no MLP); the port skips that dead norm, with the same result.
+Training (``train_loss``) runs the JAX package's ``forward_hidden`` and
+chunked cross-entropy: per-block rematerialisation (``cfg.remat``) is
+``torch.utils.checkpoint`` without reentry, the two-level ``scan_block``
+scan is a checkpoint over each group of per-block checkpoints, and each
+``ce_chunk`` of f32 logits is recomputed in the backward.  The port's train
+step, optimizer and checkpoints take flat dicts: ``flat_params`` names each
+leaf by its JAX pytree path (``layers.ssm.x_proj``), ``nested_params`` undoes
+it.
 
-Not ported yet (ROADMAP.md Queue 1): the moe, vlm and encdec families,
-``train_loss`` with its chunked cross-entropy, and the unrolled decode step.
+In the ssm family the JAX code computes ``rms_norm(x, ln2)`` and discards it
+(Mamba-1 has no MLP); the port skips that dead norm, with the same result
+(``ln2`` gets a zero gradient, as in JAX).
+
+Not ported yet (ROADMAP.md Queue 1): the moe, vlm and encdec families and
+the unrolled decode step.
 """
 from __future__ import annotations
 
@@ -24,13 +34,14 @@ import dataclasses
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
-__all__ = ["init_lm", "prefill", "decode_step", "init_cache", "CacheSpec",
-           "check_supported"]
+__all__ = ["init_lm", "train_loss", "forward_hidden", "flat_params", "nested_params",
+           "prefill", "decode_step", "init_cache", "CacheSpec", "check_supported"]
 
 FAMILIES = ("dense", "ssm", "hybrid")
 
@@ -167,15 +178,156 @@ def _mlp(x, lp, cfg: ModelConfig, norm_impl: str):
     return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
 
 
-def _mamba(h, lp, cfg: ModelConfig, **kw):
+def _mamba(h, lp, cfg: ModelConfig, return_state: bool = True, **kw):
     return L.mamba_block(h, lp["ssm"], dt_rank=cfg.resolved_dt_rank,
                          ssm_state=cfg.ssm_state, conv_k=cfg.ssm_conv,
-                         return_state=True, **kw)
+                         return_state=return_state, **kw)
 
 
 def _fuse(mix, ssm_o, lp, cfg: ModelConfig, norm_impl: str):
     """Hymba: mean-fuse the attention output with the normalised SSM output."""
     return 0.5 * (mix + L.rms_norm(ssm_o, lp["ln_ssm"], cfg.norm_eps, impl=norm_impl))
+
+
+# ---------------------------------------------------------------------------
+# Flat view of the params
+# ---------------------------------------------------------------------------
+
+
+def flat_params(params: dict, prefix: str = "") -> dict:
+    """``{"embed": t, "layers.ln1": t, "layers.ssm.x_proj": t, ...}``: every
+    leaf named by its JAX pytree path, in the nested dict's order.  The
+    tensors are the same objects."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out.update(flat_params(leaf, f"{prefix}{name}."))
+        else:
+            out[prefix + name] = leaf
+    return out
+
+
+def nested_params(flat: dict) -> dict:
+    """The inverse of :func:`flat_params`."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        *path, last = name.split(".")
+        node = out
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Training: full-sequence causal forward and the weighted CE loss
+# ---------------------------------------------------------------------------
+
+
+def _block_train(x, lp, cfg: ModelConfig, positions, attn_impl: str, ssm_impl: str,
+                 norm_impl: str):
+    """One block, full-sequence causal (``lm.py:_block_train`` of the JAX
+    package; the dense, ssm and hybrid families carry no aux loss)."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
+    if cfg.family == "ssm":
+        mix = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
+    else:
+        q, k, v = _qkv(h, lp, cfg, positions)
+        window = cfg.sliding_window if cfg.family == "hybrid" else 0
+        mix = _attn_out(L.attention(q, k, v, causal=True, window=window, impl=attn_impl), lp)
+        if cfg.family == "hybrid":
+            ssm_o = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
+            mix = _fuse(mix, ssm_o, lp, cfg, norm_impl)
+    x = x + mix
+    return x if cfg.family == "ssm" else _mlp(x, lp, cfg, norm_impl)
+
+
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+
+
+def forward_hidden(params, tokens, cfg: ModelConfig, *, attn_impl: str = "auto",
+                   ssm_impl: str = "auto", norm_impl: str = "auto"):
+    """Embed -> blocks -> final norm.  tokens [B, S].  Returns (hidden
+    [B, S, D], aux: an f32 zero, as the JAX package's for these families).
+    With ``cfg.remat`` each block is recomputed in the backward; with a
+    ``scan_block`` that divides the layers too, each group of that many
+    blocks is one more checkpoint around its blocks' checkpoints, so the
+    residuals kept are L / K + K instead of L."""
+    check_supported(cfg)
+    x = params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    layers = params["layers"]
+
+    def block(x, i):
+        return _block_train(x, _layer(layers, i), cfg, positions, attn_impl, ssm_impl,
+                            norm_impl)
+
+    def run(x, i):
+        return _remat(block, x, i) if cfg.remat else block(x, i)
+
+    k = cfg.scan_block
+    if k and cfg.num_layers % k == 0 and cfg.remat:
+        def group(x, first):
+            for i in range(first, first + k):
+                x = run(x, i)
+            return x
+
+        for first in range(0, cfg.num_layers, k):
+            x = _remat(group, x, first)
+    else:
+        for i in range(cfg.num_layers):
+            x = run(x, i)
+    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
+    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ce_chunk(h, w32, labels, valid):
+    """Σ weighted NLL of one chunk: f32 logits, logsumexp minus the target's
+    logit, labels of -1 read at 0 and weighted 0 by ``valid``."""
+    logits = torch.einsum("bsd,dv->bsv", h.float(), w32)
+    lse = torch.logsumexp(logits, dim=-1)
+    tgt = torch.gather(logits, -1, labels.clamp_min(0).long()[..., None])[..., 0]
+    return ((lse - tgt) * valid).sum()
+
+
+def _chunked_ce(params, hidden, labels, valid, cfg: ModelConfig):
+    """(Σ weighted NLL, Σ weights) without materialising [B, S, V]: each
+    ``ce_chunk`` positions (shrunk until it divides S) compute their own f32
+    logits, which the backward recomputes instead of keeping."""
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    w32 = w.float()
+    s = hidden.shape[1]
+    chunk = min(cfg.ce_chunk, s)
+    while s % chunk:
+        chunk -= 1
+    nll = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c0 in range(0, s, chunk):
+        sl = slice(c0, c0 + chunk)
+        nll = nll + _remat(_ce_chunk, hidden[:, sl], w32, labels[:, sl], valid[:, sl])
+        denom = denom + valid[:, sl].sum()
+    return nll, denom
+
+
+def train_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
+               ssm_impl: str = "auto", norm_impl: str = "auto"):
+    """Weighted next-token CE.  batch:
+      tokens  [B, S] int   labels [B, S] int (shifted targets; -1 = ignore)
+      weights [B] f32 (SOLAR per-sample mask: 0 = padding row; default 1)
+    Returns (loss, {"loss", "aux", "tokens"}).  ``tokens`` is the unclamped
+    weight mass: gradient accumulation divides the summed gradient by the
+    sum of ``tokens``, so an all-padding microbatch contributes exactly 0."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    weights = batch.get("weights")
+    if weights is None:
+        weights = torch.ones((tokens.shape[0],), dtype=torch.float32, device=tokens.device)
+    hidden, aux = forward_hidden(params, tokens, cfg, attn_impl=attn_impl,
+                                 ssm_impl=ssm_impl, norm_impl=norm_impl)
+    valid = (labels >= 0).float() * weights.float()[:, None]
+    nll_sum, denom = _chunked_ce(params, hidden, labels, valid, cfg)
+    loss = nll_sum / torch.clamp_min(denom, 1.0)
+    return loss, {"loss": loss, "aux": aux, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

@@ -68,7 +68,10 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
                 tokens = torch.ones((), dtype=torch.float32, device=device)
             tokens = tokens.detach()
             lsum = loss * tokens
-            g = torch.autograd.grad(lsum, [leaves[k] for k in names])
+            # a leaf the loss does not reach (the ssm family's ln2) gets a
+            # zero gradient, as under jax.grad
+            g = torch.autograd.grad(lsum, [leaves[k] for k in names], allow_unused=True,
+                                    materialize_grads=True)
             for k, gk in zip(names, g):
                 gacc[k] = gacc[k] + gk.to(adt)
             denom = denom + tokens

@@ -127,6 +127,8 @@ class Trainer:
         self.num_workers = num_workers
         self.skip_steps = skip_steps
         self.metrics_history: list[dict] = []
+        #: per trained step: {"wait_s", "load_s", "compute_s"}
+        self.step_times: list[dict] = []
         self.load_time_s = 0.0
         self.compute_time_s = 0.0
         self.wait_time_s = 0.0
@@ -211,6 +213,8 @@ class Trainer:
                 tr.rec(obs_trace.TRAIN_COMPUTE, t1, t2)
                 self.load_time_s += t1 - t0
                 self.compute_time_s += t2 - t1
+                self.step_times.append({"wait_s": t0 - tw, "load_s": t1 - t0,
+                                        "compute_s": t2 - t1})
                 rec = dict(zip(names, values.tolist()))
                 rec["step"] = global_step
                 self.metrics_history.append(rec)

@@ -476,3 +476,147 @@ def test_trainer_on_the_card_follows_the_cpu_trainer(no_tf32, tmp_path):
     assert [m["tokens"] for m in runs["cuda"]] == [m["tokens"] for m in runs["cpu"]]
     np.testing.assert_allclose([m["loss"] for m in runs["cuda"]],
                                [m["loss"] for m in runs["cpu"]], rtol=1e-5)
+
+
+# -- backward kernels ----------------------------------------------------------
+# Each against autograd through its plain version (ref.*_bwd) on the same
+# inputs.  The gradients are compared as max |diff| over max |reference| of
+# each output (at least 1): in f32 within 1e-4 (sums in another order), in
+# bf16 within 3e-2 (bf16 outputs and, for attention, the bf16 forward's
+# rounding of P and O, which the backward reads back through D = rowsum(dO O));
+# a bf16 output of an f32 input (ds for a bf16 scale) as bf16.
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+def _grads_agree(got, want, dtype, what):
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, (what, i, g.dtype, w.dtype)
+        # a bf16 gradient (RMSNorm's ds for a bf16 scale) rounds as bf16
+        tol = GRAD_TOL[torch.bfloat16 if torch.bfloat16 in (dtype, g.dtype) else dtype]
+        err = (g.float() - w.float()).abs().max().item()
+        scale = max(1.0, w.float().abs().max().item())
+        assert err <= tol * scale, f"{what}: gradient {i} off by {err:.3e} (scale {scale:.3e})"
+
+
+def _autograd(fn, inputs, cotangent):
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.grad_fn is not None  # the kernel output carries its backward
+    return torch.autograd.grad(out, leaves, cotangent)
+
+
+ATTN_BWD_CASES = CASES[:-1] + [(2, 25, 5, 2048, 2048, 64, True, 1024)]  # hymba training
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,causal,window", ATTN_BWD_CASES)
+def test_attention_bwd_kernel_matches_plain_version(cuda, b, h, kh, sq, sk, hd, causal,
+                                                    window, dtype):
+    q, k, v = _inputs(b, h, kh, sq, sk, hd, dtype, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(dtype)
+    before = (fa.launches, fa.bwd_launches)
+    got = _autograd(lambda *t: ops.flash_attention(*t, causal=causal, window=window),
+                    (q, k, v), do)
+    torch.cuda.synchronize()
+    assert (fa.launches, fa.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ref.attention_ref_bwd(q, k, v, do, causal=causal, window=window)
+    _grads_agree(got, want, dtype, "attention")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", SCAN_CASES + SCAN_EDGES + [(2, 2048, 3200, 16)])
+def test_scan_bwd_kernel_matches_plain_version(cuda, b, s, di, n, dtype):
+    args = _scan_inputs(b, s, di, n, dtype, cuda)
+    dy = torch.randn((b, s, di), generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda)
+    before = (ss.launches, ss.bwd_launches)
+    got = _autograd(ops.selective_scan, args, dy)
+    torch.cuda.synchronize()
+    assert (ss.launches, ss.bwd_launches) == (before[0] + 1, before[1] + 1)
+    _grads_agree(got, ref.selective_scan_ref_bwd(*args, dy), dtype, "scan")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dt_scale,dt_shift,s", [(1e-3, 0.0, 4096), (1.0, 20.0, 300)])
+def test_scan_bwd_kernel_extreme_decays(cuda, dt_scale, dt_shift, s, dtype):
+    args = _scan_inputs(2, s, 64, 16, torch.float32, cuda)
+    args[1] = args[1] * dt_scale + dt_shift
+    args = [t.to(dtype) if i in (0, 1, 3, 4) else t for i, t in enumerate(args)]
+    dy = torch.randn((2, s, 64), device=cuda)
+    _grads_agree(_autograd(ops.selective_scan, args, dy),
+                 ref.selective_scan_ref_bwd(*args, dy), dtype, "scan, extreme decays")
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", NORM_CASES + [(4096, 1600)])
+def test_norm_bwd_kernel_matches_plain_version(cuda, rows, d, dtype, scale_dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn(d, generator=g, device=cuda)).to(scale_dtype)
+    dy = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    before = (rn.launches, rn.bwd_launches)
+    got = _autograd(lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy)
+    torch.cuda.synchronize()
+    assert (rn.launches, rn.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)
+    # ds sums rows x dy: compare it relative to its own size
+    _grads_agree(got, want, dtype, "rms_norm")
+
+
+def test_kernel_outputs_carry_a_backward(cuda):
+    """A CUDA input that requires grad gets an output with a grad_fn and the
+    plain version's gradient (the wrappers used to return a fresh tensor)."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(1, 4, 2, 64, 64, 32, torch.float32, cuda))
+    out = fa.flash_attention(q, k, v)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    want = ref.attention_ref_bwd(q, k, v, torch.ones_like(out))
+    _grads_agree((q.grad, k.grad, v.grad), want, torch.float32, "attention .backward()")
+
+    args = [t.requires_grad_(t.is_floating_point()) for t in _scan_inputs(1, 40, 64, 8,
+                                                                          torch.float32, cuda)]
+    y, h = ss.selective_scan(*args)
+    assert y.grad_fn is not None and not h.requires_grad
+    y.sum().backward()
+    want = ref.selective_scan_ref_bwd(*args, torch.ones_like(y))
+    _grads_agree([t.grad for t in args], want, torch.float32, "scan .backward()")
+
+    x = torch.randn(8, 128, device=cuda, requires_grad=True)
+    scale = torch.zeros(128, device=cuda, requires_grad=True)
+    out = rn.rms_norm(x, scale)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    _grads_agree((x.grad, scale.grad), ref.rms_norm_ref_bwd(x, scale, torch.ones_like(out)),
+                 torch.float32, "rms_norm .backward()")
+
+
+def test_serving_saves_nothing_for_the_backward(cuda):
+    """Under torch.inference_mode (the serving engine's), inputs that
+    require grad get plain outputs and the kernels write no log-sum-exp and
+    no scan checkpoints: the only new allocation is the output."""
+    q, k, v = (t.requires_grad_(True) for t in _inputs(2, 4, 2, 256, 256, 64,
+                                                       torch.bfloat16, cuda))
+    scan = [t.requires_grad_(t.is_floating_point())
+            for t in _scan_inputs(2, 256, 256, 16, torch.bfloat16, cuda)]
+    x = torch.randn(512, 1600, device=cuda).to(torch.bfloat16).requires_grad_(True)
+    scale = torch.zeros(1600, device=cuda, requires_grad=True)
+    torch.cuda.synchronize()
+
+    def allocated(fn):
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        outs = out if isinstance(out, tuple) else (out,)
+        assert all(o.grad_fn is None for o in outs)
+        return torch.cuda.memory_allocated() - before, sum(
+            o.numel() * o.element_size() for o in outs)
+
+    with torch.inference_mode():
+        for fn in (lambda: fa.flash_attention(q, k, v),
+                   lambda: ss.selective_scan(*scan),
+                   lambda: rn.rms_norm(x, scale)):
+            grew, outputs = allocated(fn)
+            assert grew <= outputs + 1024, (grew, outputs)

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.models.cnn", "repro_torch.optim.adamw",
                  "repro_torch.distributed.compression", "repro_torch.train.step",
                  "repro_torch.train.trainer", "repro_torch.checkpoint.checkpoint",
-                 "repro_torch.launch.train_surrogate"):
+                 "repro_torch.launch.train_surrogate", "repro_torch.launch.train",
+                 "repro_torch.configs.deepseek_7b", "repro_torch.configs.minitron_8b",
+                 "repro_torch.configs.llama3_405b"):
         assert name in report["imported"]
 
 
@@ -81,6 +83,10 @@ def test_entry_points_raise_without_cuda(no_cuda):
         train_surrogate.main(["--arch", "ptychonn", "--reduced", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(loader=[], step_fn=None, state={}, make_batch=None)
+    from repro_torch.launch import train
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["train", "--arch", "qwen2-0.5b", "--reduced", "--steps", "1"])
     # asked for explicitly, the CPU works
     out = ServeEngine(cfg, params, max_len=16, device="cpu").generate(
         np.zeros((1, 4), np.int32), 2)

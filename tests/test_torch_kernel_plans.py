@@ -224,3 +224,51 @@ def test_scan_plan_holds_eight_states_a_lane(n, lanes, per_lane):
 def test_scan_plan_refuses(bsz, seq, di, n, dtype):
     with pytest.raises(ValueError):
         ss.launch_plan(bsz, seq, di, n, dtype)
+
+
+# -- the backward kernels' plans ----------------------------------------------------
+
+@settings(max_examples=200, deadline=None)
+@given(sq=st.integers(1, 200), sk=st.integers(1, 200), causal=st.booleans(),
+       window=st.integers(0, 80))
+def test_bwd_tile_ranges_cover_every_admitted_pair(sq, sk, causal, window):
+    """The dK/dV blocks' query rows (query_tile_range, 16-row tiles per
+    32-key tile) and the dQ blocks' keys (key_tile_range, 32-key tiles per
+    16-row tile) each reach every pair the mask admits."""
+    ok = _admitted(sq, sk, causal, window)
+    by_key = np.zeros_like(ok)
+    for k0 in range(0, sk, fa.BWD_BLOCK_K):
+        begin, end = fa.query_tile_range(k0, sq, sk, causal, window)
+        assert begin % fa.BWD_BLOCK_Q == 0
+        by_key[begin:end, k0:k0 + fa.BWD_BLOCK_K] = True
+    by_query = np.zeros_like(ok)
+    for q0 in range(0, sq, fa.BWD_BLOCK_Q):
+        begin, end = fa.key_tile_range(q0, sq, sk, causal, window,
+                                       block_q=fa.BWD_BLOCK_Q, block_k=fa.BWD_BLOCK_K)
+        by_query[q0:q0 + fa.BWD_BLOCK_Q, begin:end] = True
+    assert not (ok & ~by_key).any()
+    assert not (ok & ~by_query).any()
+
+
+def test_bwd_query_range_skips_whole_tiles_outside_the_window():
+    # hymba's training shape: a key tile sees at most window + 32 query rows
+    for k0 in range(0, 2048, fa.BWD_BLOCK_K):
+        begin, end = fa.query_tile_range(k0, 2048, 2048, True, 1024)
+        assert end - begin <= 1024 + fa.BWD_BLOCK_K + fa.BWD_BLOCK_Q
+
+
+@pytest.mark.parametrize("rows,d,warps", [(4096, 1600, 4), (6144, 4096, 4), (3, 20000, 2),
+                                          (1, 57000, 1)])
+def test_norm_bwd_shape_fits_a_block(rows, d, warps):
+    shape = rn.bwd_launch_shape(rows, d, torch.bfloat16)
+    assert shape.warps == warps and shape.warps * d * 4 <= 227 * 1024
+    assert 1 <= shape.blocks <= rn.BWD_MAX_BLOCKS
+    assert shape.blocks * shape.warps >= min(rows, rn.BWD_MAX_BLOCKS * shape.warps)
+    assert not rn.bwd_launch_shape(rows, d + 1, torch.bfloat16).vec  # d % 8 != 0
+
+
+@pytest.mark.parametrize("n", ss.STATES)
+def test_scan_bwd_every_plan_fits_a_block(n):
+    for lanes, per_lane in ss.PLANS[n]:
+        assert ss.bwd_smem_bytes(n, lanes, per_lane) <= 227 * 1024
+    assert ss.CKPT_STEPS % 16 == 0 and ss.CHUNK % ss.CKPT_STEPS == 0
