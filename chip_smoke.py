@@ -14,7 +14,8 @@ Phases, all run in order, each of which must pass:
                too);
      kernels_bwd — each backward kernel, through its autograd Function,
                against autograd through its plain version, f32 and bf16:
-               the sweeps and the shapes training gives it;
+               the sweeps, the edges of the bf16 tensor-core attention
+               kernels and the shapes training gives it;
   3. small   — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at ``reduced()``
                in f32: the card's engine (through the kernels) against the
                CPU engine (plain versions), the hymba ring cache wrapped; then
@@ -69,9 +70,10 @@ Phases, all run in order, each of which must pass:
                time of its earlier design (built from ``kernels/baselines/``
                and timed in the same run) and its f32 error, the norm row its
                decode-row times; the backward rows at hymba-1.5b's training
-               shapes, the library's backward timed eagerly), the
-               card's name and power limit, and last the
-               ``{"ok": true, "device": ...}`` line.
+               shapes and, for K2 and K3, the second model's, the
+               library's backward timed eagerly and by its kernels'
+               device time), the card's name and power limit, and last
+               the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero and prints no result when there is no card or a phase
 fails.  Imports nothing of JAX and nothing of the JAX
@@ -130,6 +132,17 @@ ATTN_TC_EDGES = [
     (2, 2, 1, 128, 128, 16, True, 0),
     (1, 2, 1, 160, 200, 128, True, 70),
     (2, 3, 1, 40, 40, 64, True, 0),
+]
+# Edges of the bf16 tensor-core backward (64 x 64 tiles), as in
+# tests/test_torch_cuda.py: ragged Sq/Sk, windows mid-tile, hd 16 and 128
+# with GQA groups 1 and 7, keys past every causal query row.
+ATTN_BWD_TC_EDGES = [
+    (1, 2, 2, 100, 150, 16, True, 0),
+    (1, 14, 2, 130, 70, 128, False, 0),
+    (2, 7, 1, 200, 200, 64, True, 37),
+    (1, 2, 2, 190, 230, 128, True, 70),
+    (1, 7, 1, 77, 300, 16, False, 100),
+    (1, 4, 4, 65, 129, 64, True, 0),
 ]
 # The shapes prefill gives the flash kernel: qwen2-0.5b (B=4, H=14, K=2,
 # S=512, causal) and hymba-1.5b (B=4, H=25, K=5, S=1536, window 1024).
@@ -503,7 +516,9 @@ def phase_build():
         for fn, info in _build.ptxas_report(lib.with_suffix(".log").read_text()):
             log(f"[build]   {fn}: {info}")
     log("[build] flash_attention bf16 dynamic shared memory per block: "
-        + ", ".join(f"hd {hd}: {fa.tc_smem_bytes(hd)} B" for hd in fa.HEAD_DIMS))
+        + ", ".join(f"hd {hd}: {fa.tc_smem_bytes(hd)} B" for hd in fa.HEAD_DIMS)
+        + "; backward (dK/dV, dQ): "
+        + ", ".join(f"hd {hd}: {fa.bwd_tc_smem_bytes(hd)} B" for hd in fa.HEAD_DIMS))
 
 
 def _agree(name, label, got, want, dtype) -> float:
@@ -611,7 +626,7 @@ def phase_kernels_bwd():
         worst[name][key] = max(worst[name].get(key, 0.0), err)
 
     train_attn = list(ATTN_TRAIN.values())
-    for shape in ATTN_SWEEP + ATTN_TC_EDGES + train_attn:
+    for shape in ATTN_SWEEP + ATTN_TC_EDGES + ATTN_BWD_TC_EDGES + train_attn:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = attention_inputs(shape, dtype)
             causal, window = shape[6], shape[7]
@@ -988,7 +1003,7 @@ def time_calls(calls: dict, **kw) -> dict:
     return {"graph": graph, "eager": eager}
 
 
-def phase_report(launches: dict, worst: dict, worst_bwd: dict) -> list:
+def phase_report(launches: dict, worst: dict, worst_bwd: dict, library_device_ms: dict) -> list:
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1130,7 +1145,7 @@ def phase_report(launches: dict, worst: dict, worst_bwd: dict) -> list:
                          "bound_by": nf_by, "library_ms": nf["library"]},
         "decode_rows": decode,
     })
-    rows += report_bwd(launches, worst_bwd, clock_hz)
+    rows += report_bwd(launches, worst_bwd, clock_hz, library_device_ms)
     return rows
 
 
@@ -1165,10 +1180,50 @@ def scan_bwd_bound(u, a, clock_hz: float):
     return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
 
 
-def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float) -> list:
-    """The backward kernels' rows: CUDA-graph times at hymba-1.5b's training
-    shapes, the plain versions (autograd through ``kernels/ref.py``) and the
-    library's backward timed eagerly, one call per timing."""
+def library_bwd_device_ms(calls: int = 5) -> dict:
+    """SDPA's backward at ``ATTN_TRAIN``'s shapes (the window's mask where
+    there is one, else ``is_causal``): the device time of the kernels one
+    ``torch.autograd.grad`` call launches, from a ``torch.profiler`` trace,
+    median of ``calls``.  Taken right after ``kernels_bwd``: on the H100 the
+    same trace taken in the report phase, after the serving and training
+    phases' traces, held no device time."""
+    import torch.nn.functional as F
+    from torch.autograd import DeviceType
+
+    out = {}
+    for name, shape in ATTN_TRAIN.items():
+        q, k, v = attention_inputs(shape, torch.bfloat16)
+        causal, window = shape[6], shape[7]
+        do = cotangent(q.shape, torch.bfloat16)
+        mask = mask_ok(shape[3], shape[4], causal, window, "cuda") if window else None
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           is_causal=causal and not window, enable_gqa=True)
+
+        def call():
+            torch.autograd.grad(o, leaves, do, retain_graph=True)
+
+        call()
+        times = []
+        for _ in range(calls):
+            events = profiled_run(call, cpu=False).key_averages()
+            times.append(sum(e.self_device_time_total for e in events
+                             if e.device_type == DeviceType.CUDA) / 1e3)
+        out[name] = statistics.median(times)
+        log(f"[report] SDPA backward {shape} bf16, device ms of its kernels per call: "
+            f"{times}")
+        if not out[name]:
+            raise AssertionError(f"the trace of SDPA's backward at {shape} holds no device time")
+    return out
+
+
+def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
+               library_device_ms: dict) -> list:
+    """The backward kernels' rows: CUDA-graph times at the training shapes
+    (hymba-1.5b's, and for K2 and K3 the second model's beside it), the
+    plain versions (autograd through ``kernels/ref.py``) and the library's
+    backward, timed eagerly (host clock included) and, from
+    ``library_bwd_device_ms``, as its kernels' device time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1178,27 +1233,36 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float) -> list:
 
     rows = []
     eager = dict(iters=1, repeats=3, warmup=1)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def lib_bwd(fn, inputs, grad):
         leaves = [t.detach().requires_grad_(True) for t in inputs]
         out = fn(*leaves)
         return lambda: torch.autograd.grad(out, leaves, grad, retain_graph=True)
 
-    shape = ATTN_TRAIN["hymba-1.5b"]
-    q, k, v = attention_inputs(shape, torch.bfloat16)
-    causal, window = shape[6], shape[7]
-    do = cotangent(q.shape, torch.bfloat16)
-    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
-    mask = mask_ok(shape[3], shape[4], causal, window, "cuda")
-    t = {"kernel": graph_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                                           window=window)),
-         "plain": cuda_ms(lambda: ref.attention_ref_bwd(q, k, v, do, causal=causal,
-                                                        window=window), **eager),
-         "library": cuda_ms(lib_bwd(lambda q_, k_, v_: F.scaled_dot_product_attention(
-             q_, k_, v_, attn_mask=mask, enable_gqa=True), (q, k, v), do), **eager)}
-    bound_ms, bound_by = attention_bwd_bound(q, k, causal, window)
-    log(f"[report] flash_attention_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
-        f"({bound_by})")
+    def attn_bwd_times(shape):
+        q, k, v = attention_inputs(shape, torch.bfloat16)
+        causal, window = shape[6], shape[7]
+        do = cotangent(q.shape, torch.bfloat16)
+        o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
+        mask = mask_ok(shape[3], shape[4], causal, window, "cuda") if window else None
+        library = lib_bwd(lambda q_, k_, v_: F.scaled_dot_product_attention(
+            q_, k_, v_, attn_mask=mask, is_causal=causal and not window, enable_gqa=True),
+            (q, k, v), do)
+        t = {"kernel": graph_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                               causal=causal, window=window)),
+             "plain": cuda_ms(lambda: ref.attention_ref_bwd(q, k, v, do, causal=causal,
+                                                            window=window), **eager),
+             "library": cuda_ms(library, **eager)}
+        splits = fa.bwd_gqa_splits(*shape[:5], causal, window, sms=sms)
+        bound_ms, bound_by = attention_bwd_bound(q, k, causal, window)
+        log(f"[report] flash_attention_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
+            f"({bound_by}); dK/dV and dQ blocks' shared memory {fa.bwd_tc_smem_bytes(shape[5])} B;"
+            f" GQA group in {splits} chunks")
+        return t, bound_ms, bound_by, splits
+
+    hy, hy_bound, hy_by, hy_splits = attn_bwd_times(ATTN_TRAIN["hymba-1.5b"])
+    qw, qw_bound, qw_by, qw_splits = attn_bwd_times(ATTN_TRAIN["qwen2-0.5b"])
     rows.append({
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1212,21 +1276,34 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float) -> list:
         "error_measure": "max |diff| / max(1, max |plain|) over dq, dk, dv",
         "tolerance": TOL_BWD[torch.bfloat16],
         "sweep_max_abs_err": worst_bwd["flash_attention_bwd"],
-        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-        "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": t["library"],  # SDPA's backward (efficient or math, with the mask)
+        "ms": hy["kernel"], "kernel_ms": hy["kernel"], "plain_ms": hy["plain"],
+        "bound_ms": hy_bound, "bound_by": hy_by,
+        # SDPA's backward (with the window's mask; causal alone: is_causal):
+        # eager host-clock time, and the device time of its kernels
+        "library_ms": hy["library"], "library_device_ms": library_device_ms["hymba-1.5b"],
+        "gqa_splits": hy_splits,
+        "qwen2_shape": {"shape": "q/dO [4,14,2048,64] k/v [4,2,2048,64] bf16 causal "
+                                 "(qwen2-0.5b training microbatch)",
+                        "kernel_ms": qw["kernel"], "plain_ms": qw["plain"],
+                        "bound_ms": qw_bound, "bound_by": qw_by, "library_ms": qw["library"],
+                        "library_device_ms": library_device_ms["qwen2-0.5b"],
+                        "gqa_splits": qw_splits},
     })
-    del q, k, v, do, o, lse, mask
 
-    shape = SCAN_TRAIN["hymba-1.5b"]
-    args = scan_inputs(shape, torch.bfloat16)
-    dy = cotangent(args[0].shape, torch.float32)
-    _, _, hck = ss.selective_scan_fwd(*args, checkpoints=True)
-    t = {"kernel": graph_ms(lambda: ss.selective_scan_bwd(*args, hck, dy)),
-         "plain": cuda_ms(lambda: ref.selective_scan_ref_bwd(*args, dy), **eager)}
-    bound_ms, bound_by, parts = scan_bwd_bound(args[0], args[2], clock_hz)
-    log(f"[report] selective_scan_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
-        f"({bound_by}; parts {parts})")
+    def scan_bwd_times(shape):
+        args = scan_inputs(shape, torch.bfloat16)
+        dy = cotangent(args[0].shape, torch.float32)
+        _, _, hck = ss.selective_scan_fwd(*args, checkpoints=True)
+        t = {"kernel": graph_ms(lambda: ss.selective_scan_bwd(*args, hck, dy)),
+             "plain": cuda_ms(lambda: ref.selective_scan_ref_bwd(*args, dy), **eager)}
+        bound_ms, bound_by, parts = scan_bwd_bound(args[0], args[2], clock_hz)
+        plan = ss.bwd_launch_plan(*shape)
+        log(f"[report] selective_scan_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} "
+            f"({bound_by}; parts {parts}); {plan}")
+        return t, bound_ms, bound_by, parts, plan
+
+    sh, sh_bound, sh_by, sh_parts, sh_plan = scan_bwd_times(SCAN_TRAIN["hymba-1.5b"])
+    sf, sf_bound, sf_by, sf_parts, sf_plan = scan_bwd_times(SCAN_TRAIN["falcon-mamba-7b"])
     rows.append({
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan_bwd.cu",
@@ -1240,11 +1317,16 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float) -> list:
         "error_measure": "max |diff| / max(1, max |plain|) over du, ddt, da, dB, dC, dD",
         "tolerance": TOL_BWD[torch.bfloat16],
         "sweep_max_abs_err": worst_bwd["selective_scan_bwd"],
-        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-        "bound_ms": bound_ms, "bound_by": bound_by, "bound_parts_ms": parts,
+        "ms": sh["kernel"], "kernel_ms": sh["kernel"], "plain_ms": sh["plain"],
+        "bound_ms": sh_bound, "bound_by": sh_by, "bound_parts_ms": sh_parts,
         "library_ms": None,  # no PyTorch call computes a selective scan
+        "plan": [sh_plan.lanes, sh_plan.per_lane],
+        "falcon_shape": {"shape": "u/dt [2,2048,8192] B/C [2,2048,16] bf16, dy f32 "
+                                  "(falcon-mamba-7b training microbatch)",
+                         "kernel_ms": sf["kernel"], "plain_ms": sf["plain"],
+                         "bound_ms": sf_bound, "bound_by": sf_by, "bound_parts_ms": sf_parts,
+                         "library_ms": None, "plan": [sf_plan.lanes, sf_plan.per_lane]},
     })
-    del args, dy, hck
 
     shape = NORM_TRAIN["hymba-1.5b"]
     x, scale = norm_inputs(shape, torch.bfloat16)
@@ -1792,6 +1874,7 @@ def main() -> int:
         worst = phase_kernels()
         done("kernels")
         worst_bwd = phase_kernels_bwd()
+        library_device_ms = library_bwd_device_ms()
         done("kernels_bwd")
         phase_small()
         done("small")
@@ -1807,7 +1890,7 @@ def main() -> int:
         done("lm_train")
         for name, by_path in lm_launches.items():
             launches[name].update(by_path)
-        rows = phase_report(launches, worst, worst_bwd)
+        rows = phase_report(launches, worst, worst_bwd, library_device_ms)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
     except Exception:  # any failed phase fails the run, with its traceback

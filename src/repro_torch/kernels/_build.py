@@ -8,6 +8,7 @@ kernel, built the same way only to time the current one against.  A
 library's file name carries a hash of its source and flags, so a stale
 library is never loaded.  The wrappers load the results
 with ``ctypes``.  ``build_all`` starts one nvcc per source at once.
+``device_sms`` gives the launch plans of both wrappers the card's SM count.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -20,8 +21,10 @@ import shutil
 import subprocess
 from pathlib import Path
 
-__all__ = ["CSRC", "BASELINES", "BUILD_DIR", "names", "source", "library_path", "build",
-           "build_all", "ptxas_report"]
+import torch
+
+__all__ = ["CSRC", "BASELINES", "BUILD_DIR", "SMS", "names", "source", "library_path",
+           "build", "build_all", "ptxas_report", "device_sms"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BASELINES = Path(__file__).resolve().parent / "baselines"
@@ -30,6 +33,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: SMs of an H100 SXM, for a launch plan asked for without a device.
+SMS = 132
+
+_sms = {}
+
+
+def device_sms(device) -> int:
+    """SMs of a CUDA device (cached): the card a launch plan is made for."""
+    if device.index not in _sms:
+        _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _sms[device.index]
 
 
 def _nvcc() -> str:

@@ -5,7 +5,10 @@ TPU kernel ``repro/kernels/flash_attention.py::flash_attention_kernel``: bf16
 runs on the tensor cores in 64-row query tiles over 64-key tiles, f32 on the
 CUDA cores.  The backward (``csrc/flash_attention_bwd.cu``) has no Pallas
 original; it computes the gradient of the plain attention from the row
-log-sum-exp the forward writes when autograd will need it.  Both launch on
+log-sum-exp the forward writes when autograd will need it: bf16 on the
+tensor cores over 64-row query tiles and 64-key tiles (``BWD_BLOCK_Q``,
+``BWD_BLOCK_K``), f32 on the CUDA cores over 16-row and 32-key tiles
+(``SIMT_BWD_BLOCK_Q``, ``SIMT_BWD_BLOCK_K``).  Both launch on
 PyTorch's current stream, allocate nothing and do not synchronise; these
 wrappers validate the inputs, allocate outputs and scratch and raise if a
 launch is refused.  ``flash_attention`` is a ``torch.autograd.Function``
@@ -15,8 +18,8 @@ otherwise (serving: no log-sum-exp is written).  ``launches`` and
 
 ``key_tile_range``, ``tile_needs_mask`` and ``query_tile_range`` mirror the
 kernels' loop bounds and mask test in pure Python, so the CPU tests can hold
-them against the mask; ``tc_smem_bytes`` mirrors the bf16 forward's
-shared-memory size.
+them against the mask; ``tc_smem_bytes`` and ``bwd_tc_smem_bytes`` mirror
+the bf16 kernels' shared-memory sizes.
 """
 from __future__ import annotations
 
@@ -26,11 +29,13 @@ import math
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMS, device_sms
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "launches",
            "bwd_launches", "HEAD_DIMS", "DTYPES", "BLOCK_Q", "BLOCK_K", "BWD_BLOCK_Q",
-           "BWD_BLOCK_K", "key_tile_range", "tile_needs_mask", "query_tile_range",
-           "tc_smem_bytes"]
+           "BWD_BLOCK_K", "SIMT_BWD_BLOCK_Q", "SIMT_BWD_BLOCK_K", "key_tile_range",
+           "tile_needs_mask", "query_tile_range", "tc_smem_bytes", "bwd_tc_smem_bytes",
+           "bwd_gqa_splits"]
 
 #: Head dims and dtypes the kernel is instantiated for (template parameters).
 HEAD_DIMS = (16, 32, 64, 128)
@@ -39,10 +44,16 @@ DTYPES = (torch.float32, torch.bfloat16)
 BLOCK_Q = 64
 BLOCK_K = 64
 
-#: The backward's query rows and keys per tile (``kBlockQ``, ``kBlockK`` in
-#: ``csrc/flash_attention_bwd.cu``).
-BWD_BLOCK_Q = 16
-BWD_BLOCK_K = 32
+#: The bf16 backward's query rows and keys per tile (``kTcBlock`` in
+#: ``csrc/flash_attention_bwd.cu``), and the f32 SIMT backward's (``kBlockQ``,
+#: ``kBlockK`` there).
+BWD_BLOCK_Q = 64
+BWD_BLOCK_K = 64
+SIMT_BWD_BLOCK_Q = 16
+SIMT_BWD_BLOCK_K = 32
+
+#: dK/dV blocks an SM holds at once (255 registers a thread, 4 warps).
+_BWD_BLOCKS_PER_SM = 2
 
 #: Forward and backward launches since import (or since a caller last set
 #: them to 0).
@@ -73,7 +84,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         lib = ctypes.CDLL(str(_build.build("flash_attention_bwd")))
         fn = lib.flash_attention_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.flash_attention_bwd_error_string
@@ -109,8 +120,10 @@ def query_tile_range(k0: int, sq: int, sk: int, causal: bool, window: int, *,
                      ) -> tuple[int, int]:
     """Query rows ``[begin, end)`` that can see a key of the tile ``[k0, k0 +
     block_k)``, ``begin`` a multiple of ``block_q``: the rows the backward's
-    dK/dV block visits.  Mirrors ``query_tile_range`` in
-    ``csrc/flash_attention_bwd.cu``; change the two together."""
+    dK/dV block visits (the bf16 kernel's tiles by default; the f32 one
+    takes ``SIMT_BWD_BLOCK_Q``/``SIMT_BWD_BLOCK_K``).  Mirrors
+    ``query_tile_range`` in ``csrc/flash_attention_bwd.cu``; change the two
+    together."""
     k_last = min(k0 + block_k, sk) - 1
     begin = (min(k0, sq) // block_q) * block_q if causal else 0
     end = min(sq, k_last + window) if window > 0 else sq
@@ -121,6 +134,43 @@ def tc_smem_bytes(hd: int) -> int:
     """Dynamic shared memory of one bf16 block: the Q tile and two stages of
     K and V tiles.  Mirrors ``tc_smem_bytes`` in ``csrc/flash_attention.cu``."""
     return (BLOCK_Q + 2 * 2 * BLOCK_K) * hd * 2
+
+
+def bwd_tc_smem_bytes(hd: int) -> tuple[int, int]:
+    """Dynamic shared memory of one bf16 backward block: (dK/dV block: K and
+    V tiles, two stages of Q and dO tiles and of their rows' lse and D in
+    f32; dQ block: Q and dO tiles, two stages of K and V tiles).  Mirrors
+    ``tc_dkdv_smem_bytes``/``tc_dq_smem_bytes`` in
+    ``csrc/flash_attention_bwd.cu``."""
+    tiles = (2 + 2 * 2) * BWD_BLOCK_Q * hd * 2
+    return tiles + 2 * 2 * BWD_BLOCK_Q * 4, tiles
+
+
+def bwd_gqa_splits(b: int, h: int, kh: int, sq: int, sk: int, causal: bool, window: int, *,
+                   sms: int = SMS) -> int:
+    """Chunks to cut each GQA group of the bf16 dK/dV kernel into (1: the
+    whole group in one block's registers).  A block per (kv head, 64-key
+    tile) loops over the group's heads and the query tiles
+    ``query_tile_range`` admits; under a causal mask without a window the
+    first key tile sees every query tile and the last one, so the heaviest
+    blocks outlast the rest.  Where the heaviest block holds over 1.5 times
+    a block slot's share of the work (``sms`` SMs of two blocks), the group
+    is cut into the fewest chunks that bring it within that share; the
+    chunks' f32 partial rows are then summed by a second kernel.  On an H100
+    (``kernels/bwd_variants.py`` times every count) this picks the fastest
+    at hymba-1.5b's training shape (1: 0.2871 ms; 3: 0.2998) and at
+    qwen2-0.5b's with a batch of 1 (7: 0.1141; 4: 0.1551), and at
+    qwen2-0.5b's training shape 3 (0.4096 ms), within 1% of the fastest, 4
+    (0.4061); 2 to 5 lie within 1.5% of each other there, 1 takes 0.5199."""
+    group = h // kh
+    tiles = []
+    for k0 in range(0, sk, BWD_BLOCK_K):
+        begin, end = query_tile_range(k0, sq, sk, causal, window)
+        tiles.append(-(-(end - begin) // BWD_BLOCK_Q) if end > begin else 0)
+    heaviest, share = max(tiles), b * kh * group * sum(tiles) / (sms * _BWD_BLOCKS_PER_SM)
+    if group == 1 or group * heaviest <= 1.5 * share:
+        return 1
+    return next((s for s in range(2, group) if -(-group // s) * heaviest <= share), group)
 
 
 def _check(q, k, v, window):
@@ -187,21 +237,30 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     global bwd_launches
     _check(q, k, v, window)
     do = do.contiguous()
+    if do.data_ptr() % 16:  # the kernels read dO in 16-byte vectors
+        do = do.clone()
     if do.shape != q.shape or do.dtype != q.dtype or o.shape != q.shape or \
-            lse.shape != q.shape[:3] or do.device != q.device:
+            lse.shape != q.shape[:3] or do.device != q.device or \
+            not o.is_contiguous() or o.data_ptr() % 16:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} {do.dtype} / lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)} {q.dtype}")
     fn, err_str = _bwd_kernel()
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    # the f32 kernels sum the whole group in registers
+    splits = bwd_gqa_splits(b, h, kh, sq, sk, causal, window,
+                            sms=device_sms(q.device)) if bf16 else 1
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    part = (torch.empty((2, splits, b * kh, sk, hd), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, h, kh, sq, sk, hd, int(causal), int(window),
-                 int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
+                 dv.data_ptr(), None if part is None else part.data_ptr(), b, h, kh, sq, sk,
+                 hd, int(causal), int(window), splits, int(bf16), 1.0 / math.sqrt(hd), stream)
     if err:
         raise RuntimeError(
             f"flash_attention_bwd launch failed: {err_str(err).decode()} ({err})")

@@ -58,15 +58,15 @@ PER_CHANNEL = "selective_scan_per_channel"
 SFU_PER_SM_CLK = 16
 
 
-def start_builds(sources: dict) -> dict:
+def start_builds(sources: dict, out_dir: Path = OUT_DIR) -> dict:
     """{name: (source text, extra nvcc flags)}: one nvcc per variant, all
-    started at once; ``finish_builds`` waits for them."""
-    OUT_DIR.mkdir(parents=True, exist_ok=True)
+    started at once, into ``out_dir``; ``finish_builds`` waits for them."""
+    out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, (source, defines) in sources.items():
-        src = OUT_DIR / f"{name}.cu"
+        src = out_dir / f"{name}.cu"
         src.write_text(source)
-        lib = OUT_DIR / f"lib{name}.so"
+        lib = out_dir / f"lib{name}.so"
         procs[name] = (lib, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, *defines, "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))

@@ -12,9 +12,10 @@ scratch and raise if a launch is refused.  ``selective_scan`` is a
 (``h_last`` is not differentiable: no training path reads it).
 ``launches`` and ``bwd_launches`` count successful launches.
 
-``launch_plan`` picks the kernel's plan for a shape (lanes per channel,
-channels per block, the grid and the shared memory) in pure Python, so the
-CPU tests reach it.
+``launch_plan`` picks the forward kernel's plan for a shape (lanes per
+channel, channels per block, the grid and the shared memory) and
+``bwd_launch_plan`` the backward's, in pure Python, so the CPU tests reach
+them.
 """
 from __future__ import annotations
 
@@ -25,10 +26,12 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._build import SMS, device_sms
 
 __all__ = ["selective_scan", "selective_scan_fwd", "selective_scan_bwd", "launches",
            "bwd_launches", "CKPT_STEPS", "bwd_smem_bytes", "STATES", "DTYPES", "CHUNK",
-           "THREADS", "SMS", "PLANS", "ScanPlan", "launch_plan", "plan_fits", "block_channels", "smem_bytes"]
+           "THREADS", "SMS", "PLANS", "BWD_PLANS", "ScanPlan", "launch_plan",
+           "bwd_launch_plan", "plan_fits", "bwd_plan_fits", "block_channels", "smem_bytes"]
 
 #: State sizes N and input dtypes the kernel is instantiated for.
 STATES = (4, 8, 16)
@@ -37,8 +40,6 @@ DTYPES = (torch.float32, torch.bfloat16)
 CHUNK = 64
 #: Threads of a block: 128 / L groups of L lanes.
 THREADS = 128
-#: SMs of an H100 SXM, for a plan asked for without a device.
-SMS = 132
 #: The plans the kernel is instantiated for (``picked`` in the source), as
 #: (L, K) by N: L lanes share K channels, N / L states of each.  The first
 #: is taken where its grid has a block for every SM, else the second, whose
@@ -48,6 +49,15 @@ SMS = 132
 #: 2, falcon-mamba-7b's at 1 (PERF.md §6).  N = 8 and 4 are not timed; they
 #: keep K = 2 and the same step of L.
 PLANS = {16: ((4, 2), (8, 2)), 8: ((2, 2), (4, 2)), 4: ((2, 2), (4, 2))}
+
+#: The backward's plan, (L, K) by N, the only one ``picked`` in
+#: ``csrc/selective_scan_bwd.cu`` instantiates: 32 channels a block.  On an
+#: H100 (``kernels/bwd_variants.py``) it is the fastest of the plans of 4 or
+#: more lanes at hymba-1.5b's width and batch 2 for N = 16, 8 and 4, and at
+#: falcon-mamba-7b's for N = 16 at batch 2 and 1.  Where its grid leaves SMs
+#: idle (hymba-1.5b's width at batch 1: 100 blocks) 16 channels a block, (8,
+#: 1), are 16% faster; no training shape of the repo takes a batch of 1.
+BWD_PLANS = {16: (8, 2), 8: (4, 1), 4: (4, 1)}
 
 #: Steps between the forward's checkpoints of h (``kSeg`` in both sources).
 CKPT_STEPS = 16
@@ -59,7 +69,6 @@ bwd_launches = 0
 
 _fn = None
 _bwd_fn = None
-_sms = {}
 
 
 class ScanPlan(NamedTuple):
@@ -90,11 +99,25 @@ def smem_bytes(channels: int, n: int, itemsize: int) -> int:
     return 2 * CHUNK * n * 4 + 2 * 2 * CHUNK * (channels + n) * itemsize
 
 
-def bwd_smem_bytes(n: int, lanes: int, per_lane: int) -> int:
+def bwd_plan_fits(n: int, lanes: int, per_lane: int) -> bool:
+    """Whether the backward's code takes this (N, L, K) (``plan_fits`` in
+    ``csrc/selective_scan_bwd.cu``): 2 to 16 lanes that divide N, at most 16
+    states a lane and 128 channels a block."""
+    return (lanes in (2, 4, 8, 16) and per_lane in (1, 2, 4) and n % lanes == 0
+            and per_lane * (n // lanes) <= 16 and block_channels(lanes, per_lane) <= 128)
+
+
+def bwd_smem_bytes(n: int, lanes: int, per_lane: int, itemsize: int) -> int:
     """A backward block's dynamic shared memory (``bwd_smem_bytes`` in
     ``csrc/selective_scan_bwd.cu``): a segment's h, [CKPT_STEPS][K * N / L]
-    [THREADS] f32, and per-warp sums of dB and dC, [2][4][CKPT_STEPS][N]."""
-    return (CKPT_STEPS * per_lane * (n // lanes) * THREADS + 2 * 4 * CKPT_STEPS * n) * 4
+    [THREADS] f32; per-warp sums of dB and dC, [2][4][CHUNK][N] f32; two
+    stages of dy [CHUNK][channels] f32, of u and dt [CHUNK][channels] and of B
+    and C [CHUNK][N] in the input dtype; the output chunk of du and ddt
+    [CHUNK][channels] in the input dtype."""
+    ch = block_channels(lanes, per_lane)
+    return ((CKPT_STEPS * per_lane * (n // lanes) * THREADS + 2 * 4 * CHUNK * n
+             + 2 * CHUNK * ch) * 4
+            + (2 * (2 * CHUNK * ch + 2 * CHUNK * n) + 2 * CHUNK * ch) * itemsize)
 
 
 def launch_plan(bsz: int, seq: int, di: int, n: int, dtype=torch.bfloat16, *,
@@ -117,6 +140,17 @@ def launch_plan(bsz: int, seq: int, di: int, n: int, dtype=torch.bfloat16, *,
                     smem_bytes(channels, n, dtype.itemsize), vec)
 
 
+def bwd_launch_plan(bsz: int, seq: int, di: int, n: int, dtype=torch.bfloat16, *,
+                    aligned: bool = True) -> ScanPlan:
+    """The backward kernel's plan, ``BWD_PLANS[n]``, as ``launch_plan`` gives
+    the forward's (``aligned``: u, dt, b, c and dy start on 16 bytes)."""
+    fwd = launch_plan(bsz, seq, di, n, dtype, aligned=aligned)  # validates
+    lanes, per_lane = BWD_PLANS[n]
+    channels = block_channels(lanes, per_lane)
+    return ScanPlan(lanes, per_lane, channels, (math.ceil(di / channels), bsz),
+                    bwd_smem_bytes(n, lanes, per_lane, dtype.itemsize), fwd.vec)
+
+
 def _kernel():
     global _fn
     if _fn is None:
@@ -136,7 +170,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         lib = ctypes.CDLL(str(_build.build("selective_scan_bwd")))
         fn = lib.selective_scan_bwd
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         err = lib.selective_scan_bwd_error_string
         err.argtypes = [ctypes.c_int]
@@ -145,13 +179,7 @@ def _bwd_kernel():
     return _bwd_fn
 
 
-def _device_sms(device) -> int:
-    if device.index not in _sms:
-        _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return _sms[device.index]
-
-
-def _check(u, dt, a, b_ssm, c_ssm, d_skip):
+def _check(u, dt, a, b_ssm, c_ssm, d_skip, *, backward: bool = False, dy=None):
     named = (("u", u), ("dt", dt), ("a", a), ("b_ssm", b_ssm), ("c_ssm", c_ssm),
              ("d_skip", d_skip))
     for name, t in named:
@@ -179,7 +207,9 @@ def _check(u, dt, a, b_ssm, c_ssm, d_skip):
             f"shapes do not fit: u {tuple(u.shape)} dt {tuple(dt.shape)} a {tuple(a.shape)} "
             f"b {tuple(b_ssm.shape)} c {tuple(c_ssm.shape)} d_skip {tuple(d_skip.shape)}")
     aligned = all(t.data_ptr() % 16 == 0 for t in (u, dt, b_ssm, c_ssm))
-    return launch_plan(bsz, s, di, n, u.dtype, aligned=aligned, sms=_device_sms(u.device))
+    if backward:
+        return bwd_launch_plan(bsz, s, di, n, u.dtype, aligned=aligned and dy.data_ptr() % 16 == 0)
+    return launch_plan(bsz, s, di, n, u.dtype, aligned=aligned, sms=device_sms(u.device))
 
 
 def selective_scan_fwd(u, dt, a, b_ssm, c_ssm, d_skip, *, checkpoints: bool = False):
@@ -215,10 +245,10 @@ def selective_scan_bwd(u, dt, a, b_ssm, c_ssm, d_skip, hck, dy):
     cotangent ``dy`` [B, S, DI], from ``selective_scan_fwd``'s checkpoints
     ``hck``; du, ddt, db, dc in the inputs' dtype, da and dd_skip f32."""
     global bwd_launches
-    plan = _check(u, dt, a, b_ssm, c_ssm, d_skip)
+    dy = dy.contiguous().float()
+    plan = _check(u, dt, a, b_ssm, c_ssm, d_skip, backward=True, dy=dy)
     bsz, s, di = u.shape
     n = a.shape[1]
-    dy = dy.contiguous().float()
     if dy.shape != u.shape or dy.device != u.device or hck.dtype != torch.float32 or \
             hck.shape != (bsz, -(-s // CKPT_STEPS), di, n) or not hck.is_contiguous():
         raise ValueError(f"dy {tuple(dy.shape)} or checkpoints {tuple(hck.shape)} do not "
@@ -237,8 +267,8 @@ def selective_scan_bwd(u, dt, a, b_ssm, c_ssm, d_skip, hck, dy):
         err = fn(*(t.data_ptr() for t in (
                      u, dt, a, b_ssm, c_ssm, d_skip, hck, dy, du, ddt, da, db, dc, dd,
                      db_part, dc_part, da_part, dd_part)),
-                 bsz, s, di, n, plan.lanes, plan.per_lane, int(u.dtype == torch.bfloat16),
-                 stream)
+                 bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
+                 int(u.dtype == torch.bfloat16), stream)
     if err:
         raise RuntimeError(
             f"selective_scan_bwd launch failed: {err_str(err).decode()} ({err})")

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rmsnorm as rn
@@ -564,6 +565,99 @@ def test_norm_bwd_kernel_matches_plain_version(cuda, rows, d, dtype, scale_dtype
     want = ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)
     # ds sums rows x dy: compare it relative to its own size
     _grads_agree(got, want, dtype, "rms_norm")
+
+
+# Edges of the bf16 tensor-core backward (64-row query tiles by 64-key
+# tiles): Sq and Sk no multiple of 64 (and Sq != Sk), windows that start
+# mid-tile, hd 16 and 128, GQA groups 1 and 7, a key tile no query reaches.
+ATTN_BWD_TC_EDGES = [
+    (1, 2, 2, 100, 150, 16, True, 0),      # hd 16, GQA 1, ragged, Sq < Sk
+    (1, 14, 2, 130, 70, 128, False, 0),    # hd 128, GQA 7, Sq > Sk, no mask
+    (2, 7, 1, 200, 200, 64, True, 37),     # GQA 7, window mid-tile
+    (1, 2, 2, 190, 230, 128, True, 70),    # hd 128, GQA 1, window, Sq != Sk
+    (1, 7, 1, 77, 300, 16, False, 100),    # hd 16, window without causal
+    (1, 4, 4, 65, 129, 64, True, 0),       # causal: keys past every query row
+]
+
+
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,causal,window", ATTN_BWD_TC_EDGES)
+def test_attention_bwd_tc_kernel_edges(cuda, b, h, kh, sq, sk, hd, causal, window):
+    q, k, v = _inputs(b, h, kh, sq, sk, hd, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(torch.bfloat16)
+    got = _autograd(lambda *t: ops.flash_attention(*t, causal=causal, window=window),
+                    (q, k, v), do)
+    want = ref.attention_ref_bwd(q, k, v, do, causal=causal, window=window)
+    _grads_agree(got, want, torch.bfloat16, "attention, tensor-core edges")
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((4, 14, 2, 128, 1500, 64, False, 0), 1),    # no mask, a grid that fills the card
+    ((4, 14, 2, 2048, 2048, 64, True, 0), 3),    # qwen2-0.5b's training microbatch
+    ((2, 14, 2, 300, 260, 64, True, 0), 7),      # a grid far under the card
+])
+def test_attention_bwd_tc_kernel_gqa_splits(cuda, shape, splits):
+    # bwd_gqa_splits cuts a GQA group of 7 into 1, 3 and 7 chunks of dK/dV
+    # blocks at these shapes on an H100: f32 partial rows summed in order,
+    # the same gradient as one block's registers, the same bits every call
+    b, h, kh, sq, sk, hd, causal, window = shape
+    assert fa.bwd_gqa_splits(b, h, kh, sq, sk, causal, window,
+                             sms=_build.device_sms(cuda)) == splits
+    q, k, v = _inputs(b, h, kh, sq, sk, hd, torch.bfloat16, cuda)
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(torch.bfloat16)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=causal, window=window, with_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    want = ref.attention_ref_bwd(q, k, v, do, causal=causal, window=window)
+    _grads_agree(got, want, torch.bfloat16, f"attention, GQA in {splits} chunks")
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal, window=window)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_kernels_give_the_same_bits_on_every_run(cuda, dtype):
+    """No atomics: two backward calls on the same inputs agree bit for bit
+    (the GQA sums of dK/dV in registers, the scan's sums in a fixed order)."""
+    q, k, v = _inputs(2, 10, 2, 300, 300, 64, dtype, cuda)
+    do = torch.randn(q.shape, device=cuda).to(dtype)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=100, with_lse=True)
+    runs = [fa.flash_attention_bwd(q, k, v, o, lse, do, causal=True, window=100)
+            for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    args = _scan_inputs(2, 300, 3200, 16, dtype, cuda)
+    dy = torch.randn((2, 300, 3200), device=cuda)
+    hck = ss.selective_scan_fwd(*args, checkpoints=True)[2]
+    runs = [ss.selective_scan_bwd(*args, hck, dy) for _ in range(2)]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,di,n", [(2, 64, 256, 16), (1, 100, 200, 8), (2, 77, 96, 4)])
+def test_scan_bwd_kernel_unaligned_view(cuda, b, s, di, n, dtype):
+    # u one element off 16 bytes: the scalar-load plan, S no multiple of the chunk
+    args = _scan_inputs(b, s, di, n, dtype, cuda)
+    buf = torch.empty(args[0].numel() + 8, dtype=dtype, device=cuda)
+    u = buf[1:args[0].numel() + 1].view(args[0].shape)
+    u.copy_(args[0])
+    dy = torch.randn((b, s, di), device=cuda)
+    assert u.data_ptr() % 16 and not ss._check(u, *args[1:], backward=True, dy=dy).vec
+    args = [u, *args[1:]]
+    _grads_agree(_autograd(ops.selective_scan, args, dy),
+                 ref.selective_scan_ref_bwd(*args, dy), dtype, "scan, unaligned")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", ss.STATES)
+def test_scan_bwd_kernel_every_plan(cuda, n, dtype):
+    # each N's plan; S = 150: two chunks and a ragged third; DI = 200: a
+    # ragged last block
+    args = _scan_inputs(2, 150, 200, n, dtype, cuda)
+    dy = torch.randn((2, 150, 200), device=cuda)
+    plan = ss._check(*args, backward=True, dy=dy)
+    assert (plan.lanes, plan.per_lane) == ss.BWD_PLANS[n] and plan.vec
+    hck = ss.selective_scan_fwd(*args, checkpoints=True)[2]
+    got = ss.selective_scan_bwd(*args, hck, dy)
+    _grads_agree(got, ref.selective_scan_ref_bwd(*args, dy), dtype, f"scan plan {plan}")
 
 
 def test_kernel_outputs_carry_a_backward(cuda):

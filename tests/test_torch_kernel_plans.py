@@ -6,7 +6,9 @@ range per 64-row query tile and its mask test (``csrc/flash_attention.cu``
 ``key_tile_range``/``tile_needs_mask``), the RMSNorm kernel's
 instantiation (``rmsnorm.launch_shape``) and the selective-scan kernel's
 plan (``selective_scan.launch_plan``: lanes per channel, channels per block,
-grid, shared memory).  These tests hold the mirrors
+grid, shared memory), and the backward kernels' tiles and plans
+(``query_tile_range``, ``bwd_tc_smem_bytes``, ``bwd_launch_plan``).  These
+tests hold the mirrors
 against the mask and the widths they must cover.
 """
 import numpy as np
@@ -228,33 +230,83 @@ def test_scan_plan_refuses(bsz, seq, di, n, dtype):
 
 # -- the backward kernels' plans ----------------------------------------------------
 
+# The backward's tiles: the bf16 tensor-core kernels' 64-row query tiles by
+# 64-key tiles, and the f32 SIMT kernels' 16 by 32.
+BWD_TILES = [(fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K), (fa.SIMT_BWD_BLOCK_Q, fa.SIMT_BWD_BLOCK_K)]
+
+
+@pytest.mark.parametrize("block_q,block_k", BWD_TILES)
 @settings(max_examples=200, deadline=None)
 @given(sq=st.integers(1, 200), sk=st.integers(1, 200), causal=st.booleans(),
        window=st.integers(0, 80))
-def test_bwd_tile_ranges_cover_every_admitted_pair(sq, sk, causal, window):
-    """The dK/dV blocks' query rows (query_tile_range, 16-row tiles per
-    32-key tile) and the dQ blocks' keys (key_tile_range, 32-key tiles per
-    16-row tile) each reach every pair the mask admits."""
+def test_bwd_tile_ranges_cover_every_admitted_pair(block_q, block_k, sq, sk, causal, window):
+    """The dK/dV blocks' query rows (query_tile_range, block_q-row tiles per
+    block_k-key tile) and the dQ blocks' keys (key_tile_range, block_k-key
+    tiles per block_q-row tile) each reach every pair the mask admits."""
     ok = _admitted(sq, sk, causal, window)
     by_key = np.zeros_like(ok)
-    for k0 in range(0, sk, fa.BWD_BLOCK_K):
-        begin, end = fa.query_tile_range(k0, sq, sk, causal, window)
-        assert begin % fa.BWD_BLOCK_Q == 0
-        by_key[begin:end, k0:k0 + fa.BWD_BLOCK_K] = True
+    for k0 in range(0, sk, block_k):
+        begin, end = fa.query_tile_range(k0, sq, sk, causal, window, block_q=block_q,
+                                         block_k=block_k)
+        assert begin % block_q == 0
+        by_key[begin:end, k0:k0 + block_k] = True
     by_query = np.zeros_like(ok)
-    for q0 in range(0, sq, fa.BWD_BLOCK_Q):
+    for q0 in range(0, sq, block_q):
         begin, end = fa.key_tile_range(q0, sq, sk, causal, window,
-                                       block_q=fa.BWD_BLOCK_Q, block_k=fa.BWD_BLOCK_K)
-        by_query[q0:q0 + fa.BWD_BLOCK_Q, begin:end] = True
+                                       block_q=block_q, block_k=block_k)
+        by_query[q0:q0 + block_q, begin:end] = True
     assert not (ok & ~by_key).any()
     assert not (ok & ~by_query).any()
 
 
-def test_bwd_query_range_skips_whole_tiles_outside_the_window():
-    # hymba's training shape: a key tile sees at most window + 32 query rows
-    for k0 in range(0, 2048, fa.BWD_BLOCK_K):
-        begin, end = fa.query_tile_range(k0, 2048, 2048, True, 1024)
-        assert end - begin <= 1024 + fa.BWD_BLOCK_K + fa.BWD_BLOCK_Q
+@pytest.mark.parametrize("block_q,block_k", BWD_TILES)
+def test_bwd_query_range_skips_whole_tiles_outside_the_window(block_q, block_k):
+    # hymba's training shape: a key tile sees at most window + block_k query rows
+    for k0 in range(0, 2048, block_k):
+        begin, end = fa.query_tile_range(k0, 2048, 2048, True, 1024, block_q=block_q,
+                                         block_k=block_k)
+        assert end - begin <= 1024 + block_k + block_q
+
+
+def test_bwd_tiles_default_to_the_tensor_core_kernels():
+    assert (fa.BWD_BLOCK_Q, fa.BWD_BLOCK_K) == (fa.BLOCK_Q, fa.BLOCK_K) == (64, 64)
+    assert fa.query_tile_range(128, 2048, 2048, True, 1024) == \
+        fa.query_tile_range(128, 2048, 2048, True, 1024, block_q=64, block_k=64) == (128, 1215)
+
+
+@pytest.mark.parametrize("shape,splits", [
+    ((2, 25, 5, 2048, 2048, True, 1024), 1),  # hymba-1.5b: the window evens the key tiles out
+    ((4, 14, 2, 2048, 2048, True, 0), 3),     # qwen2-0.5b: key tile 0 sees 32 query tiles, the last 1
+    ((4, 14, 2, 2048, 2048, False, 0), 1),    # no mask: every key tile sees every query tile
+    ((1, 4, 4, 128, 128, True, 0), 1),        # no GQA group to cut
+    ((1, 14, 2, 96, 96, True, 0), 7),         # a grid far under the card: every head its block
+])
+def test_bwd_gqa_splits(shape, splits):
+    assert fa.bwd_gqa_splits(*shape) == splits
+
+
+@settings(max_examples=200, deadline=None)
+@given(b=st.integers(1, 4), kh=st.integers(1, 4), group=st.integers(1, 8),
+       sq=st.integers(1, 3000), sk=st.integers(1, 3000), causal=st.booleans(),
+       window=st.one_of(st.just(0), st.integers(1, 2000)), sms=st.integers(1, 200))
+def test_bwd_gqa_chunks_cover_every_head_once(b, kh, group, sq, sk, causal, window, sms):
+    """The dK/dV kernel's chunk c of a split group takes heads [c * per,
+    min(group, (c + 1) * per)), per = ceil(group / splits): together every
+    head of the group, each once."""
+    splits = fa.bwd_gqa_splits(b, kh * group, kh, sq, sk, causal, window, sms=sms)
+    assert 1 <= splits <= group
+    per = -(-group // splits)
+    heads = [h for c in range(splits) for h in range(c * per, min(group, (c + 1) * per))]
+    assert heads == list(range(group))
+
+
+@pytest.mark.parametrize("hd", fa.HEAD_DIMS)
+def test_bwd_tc_shared_memory_fits_a_block(hd):
+    dkdv, dq = fa.bwd_tc_smem_bytes(hd)
+    assert dq == 6 * 64 * hd * 2              # Q, dO and 2 stages of K and V, bf16
+    assert dkdv == dq + 2 * 2 * 64 * 4        # K, V, 2 stages of Q, dO, lse and D
+    assert max(dkdv, dq) <= 227 * 1024        # an H100 block's dynamic shared memory
+    assert 2 * max(dkdv, dq) <= 228 * 1024    # two blocks an SM (launch bounds)
 
 
 @pytest.mark.parametrize("rows,d,warps", [(4096, 1600, 4), (6144, 4096, 4), (3, 20000, 2),
@@ -269,6 +321,55 @@ def test_norm_bwd_shape_fits_a_block(rows, d, warps):
 
 @pytest.mark.parametrize("n", ss.STATES)
 def test_scan_bwd_every_plan_fits_a_block(n):
-    for lanes, per_lane in ss.PLANS[n]:
-        assert ss.bwd_smem_bytes(n, lanes, per_lane) <= 227 * 1024
+    lanes, per_lane = ss.BWD_PLANS[n]
+    assert ss.bwd_plan_fits(n, lanes, per_lane)
+    for dtype in ss.DTYPES:
+        assert ss.bwd_smem_bytes(n, lanes, per_lane, dtype.itemsize) <= 227 * 1024
     assert ss.CKPT_STEPS % 16 == 0 and ss.CHUNK % ss.CKPT_STEPS == 0
+
+
+def test_scan_bwd_chunks_hold_whole_segments():
+    # the staged walk recomputes whole CKPT_STEPS segments inside a CHUNK,
+    # and its reduce-scatters run over L lanes and 32 / L groups of steps
+    # that a segment holds whole
+    assert ss.CHUNK % ss.CKPT_STEPS == 0
+    for n in ss.STATES:
+        lanes = ss.BWD_PLANS[n][0]
+        assert ss.CKPT_STEPS % max(lanes, 32 // lanes) == 0
+
+
+@settings(max_examples=60, deadline=None)
+@given(bsz=st.integers(1, 8), seq=st.integers(1, 4096), di=st.integers(1, 16384),
+       n=st.sampled_from(ss.STATES), dtype=st.sampled_from(ss.DTYPES),
+       aligned=st.booleans())
+def test_scan_bwd_plan_gives_every_state_one_lane(bsz, seq, di, n, dtype, aligned):
+    plan = ss.bwd_launch_plan(bsz, seq, di, n, dtype, aligned=aligned)
+    assert (plan.lanes, plan.per_lane) == ss.BWD_PLANS[n]
+    assert plan.channels == ss.THREADS // plan.lanes * plan.per_lane
+    assert plan.channels % 8 == 0                  # whole 16-byte vectors of bf16
+    assert plan.grid == (-(-di // plan.channels), bsz)
+    assert plan.smem_bytes == ss.bwd_smem_bytes(n, plan.lanes, plan.per_lane, dtype.itemsize)
+    assert plan.smem_bytes <= 227 * 1024
+    width = 16 // dtype.itemsize
+    assert plan.vec == (aligned and di % width == 0 and seq * n % width == 0)
+    assert (_owners(plan, di, n) == 1).all()
+
+
+@pytest.mark.parametrize("shape,plan", [
+    ((2, 2048, 3200, 16), (8, 2, 32, (100, 2))),    # hymba-1.5b training microbatch
+    ((2, 2048, 8192, 16), (8, 2, 32, (256, 2))),    # falcon-mamba-7b's
+    ((1, 2048, 3200, 16), (8, 2, 32, (100, 1))),    # a grid of fewer blocks than SMs
+    ((2, 96, 64, 8), (4, 1, 32, (2, 2))),
+    ((2, 64, 20, 4), (4, 1, 32, (1, 2))),
+])
+def test_scan_bwd_plan_at_training_shapes(shape, plan):
+    got = ss.bwd_launch_plan(*shape)
+    assert tuple(got)[:4] == plan
+    assert (_owners(got, shape[2], shape[3]) == 1).all()
+
+
+def test_scan_bwd_plan_refuses():
+    with pytest.raises(ValueError, match="state size 32"):
+        ss.bwd_launch_plan(2, 64, 64, 32)
+    with pytest.raises(ValueError):
+        ss.bwd_launch_plan(65536, 1, 8, 4)
