@@ -15,7 +15,8 @@ Phases, all run in order, each of which must pass:
      kernels_bwd — each backward kernel, through its autograd Function,
                against autograd through its plain version, f32 and bf16:
                the sweeps, the edges of the bf16 tensor-core attention
-               kernels and the shapes training gives it;
+               kernels and of the RMSNorm backward's paths, and the shapes
+               training gives it;
   3. small   — qwen2-0.5b, hymba-1.5b and falcon-mamba-7b at ``reduced()``
                in f32: the card's engine (through the kernels) against the
                CPU engine (plain versions), the hymba ring cache wrapped; then
@@ -70,9 +71,10 @@ Phases, all run in order, each of which must pass:
                time of its earlier design (built from ``kernels/baselines/``
                and timed in the same run) and its f32 error, the norm row its
                decode-row times; the backward rows at hymba-1.5b's training
-               shapes and, for K2 and K3, the second model's, the
-               library's backward timed eagerly and by its kernels'
-               device time), the card's name and power limit, and last
+               shapes and the other models' (K2 qwen2-0.5b's, K3
+               falcon-mamba-7b's, K1 both), the library's backward timed
+               eagerly and by its kernels' device time), the card's name
+               and power limit, and last
                the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero and prints no result when there is no card or a phase
@@ -237,6 +239,14 @@ ATTN_TRAIN = {"hymba-1.5b": (2, 25, 5, 2048, 2048, 64, True, 1024),
 SCAN_TRAIN = {"hymba-1.5b": (2, 2048, 3200, 16), "falcon-mamba-7b": (2, 2048, 8192, 16)}
 NORM_TRAIN = {"hymba-1.5b": (4096, 1600), "qwen2-0.5b": (8192, 896),
               "falcon-mamba-7b": (4096, 4096)}
+# Edges of the RMSNorm backward's paths, each in f32 and bf16 x: (rows, d,
+# scale dtype (None: x's), x's offset in elements from a 16-byte boundary).
+# Scalar loads (d % 8 != 0), a row wider than the register path (streaming),
+# one row (one block, split over 2 and 4 warps), fewer rows than a block's
+# teams, an f32 x with a bf16 scale, and an x that starts off 16 bytes.
+NORM_BWD_EDGES = [(37, 1001, None, 0), (64, 8192, None, 0), (1, 1600, None, 0),
+                  (1, 4096, None, 0), (3, 896, None, 0), (3, 1600, None, 0),
+                  (300, 2048, torch.bfloat16, 0), (4, 1600, None, 1)]
 
 # LM training through the kernels against the plain versions, f32, full width
 # and few layers: (arch, layers, batch, sequence).  The drift is the larger
@@ -581,19 +591,23 @@ def phase_kernels():
 
 
 def _agree_grads(name, label, got, want, dtype) -> float:
-    """The worst max |diff| / max(1, max |want|) over the gradients."""
+    """The worst max |diff| / max(1, max |want|) over the gradients, each
+    within ``TOL_BWD`` of ``dtype``, or of bf16 for a bf16 gradient of an
+    f32 input (RMSNorm's ds for a bf16 scale rounds as bf16)."""
     torch.cuda.synchronize()
-    err = 0.0
+    err, ok = 0.0, True
     for g, w in zip(got, want):
         if g.dtype != w.dtype or g.shape != w.shape:
             raise AssertionError(f"{name} {label}: gradient {g.dtype} {tuple(g.shape)}, "
                                  f"plain {w.dtype} {tuple(w.shape)}")
         scale = max(1.0, w.float().abs().max().item())
-        err = max(err, (g.float() - w.float()).abs().max().item() / scale)
+        e = (g.float() - w.float()).abs().max().item() / scale
+        ok &= math.isfinite(e) and e <= TOL_BWD[torch.bfloat16 if g.dtype == torch.bfloat16
+                                                else dtype]
+        err = max(err, e)
     tol = TOL_BWD[dtype]
-    ok = math.isfinite(err) and err <= tol
     log(f"[kernels_bwd] {name} {label} {str(dtype)[6:]}: max |diff| / max |ref| {err:.3e} "
-        f"(tol {tol:g}) {'ok' if ok else 'FAIL'}")
+        f"(tol {tol:g}; bf16 gradients {TOL_BWD[torch.bfloat16]:g}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} disagrees with autograd through its plain version at "
                              f"{label} {dtype}")
@@ -657,6 +671,21 @@ def phase_kernels_bwd():
                 lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy),
                 ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype)
             note("rms_norm_bwd", ("train_" if train else "") + str(dtype)[6:], err)
+    for rows, d, scale_dtype, offset in NORM_BWD_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, scale = norm_inputs((rows, d), dtype)
+            scale = scale.to(scale_dtype or dtype)
+            if offset:
+                buf = torch.empty(x.numel() + offset, dtype=dtype, device="cuda")
+                x = buf[offset:].view(rows, d).copy_(x)
+                if x.data_ptr() % 16 == 0:
+                    raise AssertionError("the offset view starts on 16 bytes")
+            dy = cotangent(x.shape, dtype)
+            label = f"edge {(rows, d)} scale {str(scale.dtype)[6:]} offset {offset}"
+            err = _agree_grads("rms_norm_bwd", label, _grads(
+                lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy),
+                ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype)
+            note("rms_norm_bwd", "edge_" + str(dtype)[6:], err)
     return worst
 
 
@@ -1180,17 +1209,52 @@ def scan_bwd_bound(u, a, clock_hz: float):
     return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
 
 
-def library_bwd_device_ms(calls: int = 5) -> dict:
-    """SDPA's backward at ``ATTN_TRAIN``'s shapes (the window's mask where
-    there is one, else ``is_causal``): the device time of the kernels one
-    ``torch.autograd.grad`` call launches, from a ``torch.profiler`` trace,
-    median of ``calls``.  Taken right after ``kernels_bwd``: on the H100 the
-    same trace taken in the report phase, after the serving and training
-    phases' traces, held no device time."""
+def _grad_device_ms(out, leaves, grad, calls: int) -> list:
+    """Device time (ms) of the kernels one ``torch.autograd.grad`` call of
+    ``out`` launches, from ``torch.profiler`` traces of ``calls`` calls after
+    one untraced.  On the H100 a trace may lose some or all of a call's
+    kernels (one of F.rms_norm's backward held only its weight-gradient
+    kernel, some held none), so calls are traced, at most 4 * calls times,
+    until ``calls`` traces hold every kernel as often as any trace did; only
+    those count."""
+    from torch.autograd import DeviceType
+
+    def call():
+        torch.autograd.grad(out, leaves, grad, retain_graph=True)
+
+    call()
+    traces, whole = [], []
+    for _ in range(4 * calls):
+        events = profiled_run(call, cpu=False).key_averages()
+        traces.append({e.key: (e.count, e.self_device_time_total / 1e3) for e in events
+                       if e.device_type == DeviceType.CUDA})
+        most = {}
+        for t in traces:
+            for key, (count, _) in t.items():
+                most[key] = max(most.get(key, 0), count)
+        whole = [t for t in traces if {k: c for k, (c, _) in t.items()} == most]
+        if len(whole) >= calls:
+            break
+    return [sum(ms for _, ms in t.values()) for t in whole[:calls]]
+
+
+def bwd_device_ms(calls: int = 5) -> dict:
+    """Device times from ``torch.profiler`` traces, by arch.  The library's
+    backward, as the device time of its kernels (median of ``calls`` traced
+    ``torch.autograd.grad`` calls): SDPA's at ``ATTN_TRAIN``'s shapes (the
+    window's mask where there is one, else ``is_causal``) under
+    ``"attention"``, ``F.rms_norm``'s (weight 1 + scale) at ``NORM_TRAIN``'s
+    under ``"rms_norm"``.  Under ``"rms_norm_bwd_kernels"``, the mean device
+    ms a call of each of the RMSNorm backward's two kernels over 20 traced
+    calls.  Taken right after ``kernels_bwd``: on the H100 the same trace
+    taken in the report phase, after the serving and training phases'
+    traces, held no device time."""
     import torch.nn.functional as F
     from torch.autograd import DeviceType
 
-    out = {}
+    from repro_torch.kernels import rmsnorm as rn
+
+    out = {"attention": {}, "rms_norm": {}, "rms_norm_bwd_kernels": {}}
     for name, shape in ATTN_TRAIN.items():
         q, k, v = attention_inputs(shape, torch.bfloat16)
         causal, window = shape[6], shape[7]
@@ -1199,31 +1263,45 @@ def library_bwd_device_ms(calls: int = 5) -> dict:
         leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
         o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
                                            is_causal=causal and not window, enable_gqa=True)
-
-        def call():
-            torch.autograd.grad(o, leaves, do, retain_graph=True)
-
-        call()
-        times = []
-        for _ in range(calls):
-            events = profiled_run(call, cpu=False).key_averages()
-            times.append(sum(e.self_device_time_total for e in events
-                             if e.device_type == DeviceType.CUDA) / 1e3)
-        out[name] = statistics.median(times)
+        times = _grad_device_ms(o, leaves, do, calls)
+        out["attention"][name] = statistics.median(times) if times else None
         log(f"[report] SDPA backward {shape} bf16, device ms of its kernels per call: "
             f"{times}")
-        if not out[name]:
-            raise AssertionError(f"the trace of SDPA's backward at {shape} holds no device time")
+    for name, shape in NORM_TRAIN.items():
+        x, scale = norm_inputs(shape, torch.bfloat16)
+        leaves = [x.detach().requires_grad_(True), (1 + scale).detach().requires_grad_(True)]
+        out_ = F.rms_norm(leaves[0], (shape[1],), weight=leaves[1], eps=1e-6)
+        times = _grad_device_ms(out_, leaves, cotangent(x.shape, torch.bfloat16), calls)
+        out["rms_norm"][name] = statistics.median(times) if times else None
+        log(f"[report] F.rms_norm backward {shape} bf16, device ms of its kernels per call: "
+            f"{times}")
+        dy = cotangent(x.shape, torch.bfloat16)
+        rn.rms_norm_bwd(x, scale, dy)
+        for _ in range(5):  # until a trace holds both kernels (the split is not checked)
+            events = profiled_run(lambda: [rn.rms_norm_bwd(x, scale, dy) for _ in range(20)],
+                                  cpu=False).key_averages()
+            by_kernel = {e.key.split("<")[0].split("::")[-1]:
+                         e.self_device_time_total / 1e3 / e.count
+                         for e in events if e.device_type == DeviceType.CUDA and e.count}
+            if len(by_kernel) == 2:
+                break
+        out["rms_norm_bwd_kernels"][name] = by_kernel
+        log(f"[report] rms_norm_bwd {shape} bf16, device ms per call by kernel: {by_kernel}")
+    for lib in ("attention", "rms_norm"):
+        for name, ms in out[lib].items():
+            if not ms:
+                raise AssertionError(f"no trace of the {lib} library backward at {name} "
+                                     "held its kernels")
     return out
 
 
 def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
                library_device_ms: dict) -> list:
     """The backward kernels' rows: CUDA-graph times at the training shapes
-    (hymba-1.5b's, and for K2 and K3 the second model's beside it), the
+    (hymba-1.5b's, and the other models' beside it), the
     plain versions (autograd through ``kernels/ref.py``) and the library's
     backward, timed eagerly (host clock included) and, from
-    ``library_bwd_device_ms``, as its kernels' device time."""
+    ``bwd_device_ms``, as its kernels' device time."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
@@ -1280,13 +1358,14 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
         "bound_ms": hy_bound, "bound_by": hy_by,
         # SDPA's backward (with the window's mask; causal alone: is_causal):
         # eager host-clock time, and the device time of its kernels
-        "library_ms": hy["library"], "library_device_ms": library_device_ms["hymba-1.5b"],
+        "library_ms": hy["library"],
+        "library_device_ms": library_device_ms["attention"]["hymba-1.5b"],
         "gqa_splits": hy_splits,
         "qwen2_shape": {"shape": "q/dO [4,14,2048,64] k/v [4,2,2048,64] bf16 causal "
                                  "(qwen2-0.5b training microbatch)",
                         "kernel_ms": qw["kernel"], "plain_ms": qw["plain"],
                         "bound_ms": qw_bound, "bound_by": qw_by, "library_ms": qw["library"],
-                        "library_device_ms": library_device_ms["qwen2-0.5b"],
+                        "library_device_ms": library_device_ms["attention"]["qwen2-0.5b"],
                         "gqa_splits": qw_splits},
     })
 
@@ -1328,34 +1407,50 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
                          "library_ms": None, "plan": [sf_plan.lanes, sf_plan.per_lane]},
     })
 
-    shape = NORM_TRAIN["hymba-1.5b"]
-    x, scale = norm_inputs(shape, torch.bfloat16)
-    dy = cotangent(x.shape, torch.bfloat16)
-    t = {"kernel": graph_ms(lambda: rn.rms_norm_bwd(x, scale, dy, eps=1e-6)),
-         "plain": graph_ms(lambda: ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)),
-         "library": cuda_ms(lib_bwd(lambda x_, w_: F.rms_norm(x_, (shape[1],), weight=w_,
-                                                              eps=1e-6),
-                                    (x, 1 + scale), dy), iters=20)}
-    nbytes = 3 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
-    bound_ms = nbytes / HBM_BYTE_S * 1e3
-    log(f"[report] rms_norm_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} (bytes); "
-        f"{rn.bwd_launch_shape(*shape, x.dtype)}")
+    def norm_bwd_times(arch):
+        shape = NORM_TRAIN[arch]
+        x, scale = norm_inputs(shape, torch.bfloat16)
+        dy = cotangent(x.shape, torch.bfloat16)
+        library = lib_bwd(lambda x_, w_: F.rms_norm(x_, (shape[1],), weight=w_, eps=1e-6),
+                          (x, 1 + scale), dy)
+        t = {"kernel": graph_ms(lambda: rn.rms_norm_bwd(x, scale, dy, eps=1e-6)),
+             "plain": graph_ms(lambda: ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)),
+             "library": cuda_ms(library, iters=20)}
+        # x and dy read once, dx written once, scale read and ds written once
+        nbytes = 3 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+        bound_ms = nbytes / HBM_BYTE_S * 1e3
+        plan = rn.bwd_launch_shape(*shape, x.dtype, sms=sms)
+        log(f"[report] rms_norm_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} (bytes); "
+            f"F.rms_norm backward device ms {library_device_ms['rms_norm'][arch]:.5f}; {plan}")
+        return {"shape": f"x/dy {list(shape)} bf16, scale [{shape[1]}] bf16 ({arch} training "
+                         "microbatch)",
+                "kernel_ms": t["kernel"], "plain_ms": t["plain"], "bound_ms": bound_ms,
+                "bound_by": "bytes", "library_ms": t["library"],
+                "library_device_ms": library_device_ms["rms_norm"][arch],
+                "plan": plan._asdict(),
+                "kernels_device_ms": library_device_ms["rms_norm_bwd_kernels"][arch]}
+
+    norm = {arch: norm_bwd_times(arch) for arch in NORM_TRAIN}
+    hy = norm["hymba-1.5b"]
     rows.append({
         "name": "rms_norm_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rms_norm_bwd.cu",
         "replaces": "src/repro/kernels/rmsnorm.py:26",
         "note": "the TPU kernel has no VJP; this is the JAX package's custom VJP of "
                 "its plain rms_norm (src/repro/models/layers.py:63)",
-        "shape": "x/dy [4096,1600] bf16, scale [1600] bf16 (hymba-1.5b training microbatch)",
+        "shape": hy["shape"],
         "launches": sum(launches["rms_norm_bwd"].values()),
         "launches_by_path": launches["rms_norm_bwd"],
         "max_abs_err": worst_bwd["rms_norm_bwd"]["train_bfloat16"],
         "error_measure": "max |diff| / max(1, max |plain|) over dx, ds",
         "tolerance": TOL_BWD[torch.bfloat16],
         "sweep_max_abs_err": worst_bwd["rms_norm_bwd"],
-        "ms": t["kernel"], "kernel_ms": t["kernel"], "plain_ms": t["plain"],
-        "bound_ms": bound_ms, "bound_by": "bytes",
-        "library_ms": t["library"],  # F.rms_norm's backward, eager
+        "ms": hy["kernel_ms"], "kernel_ms": hy["kernel_ms"], "plain_ms": hy["plain_ms"],
+        "bound_ms": hy["bound_ms"], "bound_by": "bytes",
+        # F.rms_norm's backward: eager host-clock time, and the device time of its kernels
+        "library_ms": hy["library_ms"], "library_device_ms": hy["library_device_ms"],
+        "plan": hy["plan"], "kernels_device_ms": hy["kernels_device_ms"],
+        "qwen2_shape": norm["qwen2-0.5b"], "falcon_shape": norm["falcon-mamba-7b"],
     })
     return rows
 
@@ -1874,7 +1969,7 @@ def main() -> int:
         worst = phase_kernels()
         done("kernels")
         worst_bwd = phase_kernels_bwd()
-        library_device_ms = library_bwd_device_ms()
+        library_device_ms = bwd_device_ms()
         done("kernels_bwd")
         phase_small()
         done("small")

@@ -9,10 +9,11 @@ checkout's kernels, and times K2 (bf16, hymba-1.5b's and qwen2-0.5b's
 prefill shapes), K3 (hymba-1.5b's and falcon-mamba-7b's) and K1
 (hymba-1.5b's rows) as CUDA-event medians of CUDA-graph replays, on inputs
 that do not require grad: serving's calls.  With ``--backward`` it times
-K2's and K3's backward kernels instead, at the shapes a training microbatch
-gives them (``chip_smoke.py``'s ``ATTN_TRAIN``: hymba-1.5b's and
-qwen2-0.5b's; ``SCAN_TRAIN``: hymba-1.5b's and falcon-mamba-7b's), from each
-checkout's own forward outputs (o and lse, the checkpoints).  The turns go other, this,
+the backward kernels instead, at the shapes a training microbatch gives
+them (``chip_smoke.py``'s ``ATTN_TRAIN``: hymba-1.5b's and qwen2-0.5b's;
+``SCAN_TRAIN``: hymba-1.5b's and falcon-mamba-7b's; ``NORM_TRAIN``: all
+three), K2's and K3's from each checkout's own forward outputs (o and lse,
+the checkpoints).  The turns go other, this,
 this, other, other, this, so a drift of the card over the call falls on
 both sides.  Prints one JSON line per turn and writes them all to
 ``--out``.
@@ -77,7 +78,8 @@ print(json.dumps(out))
 '''
 
 # The backward kernels at the training microbatch's shapes (chip_smoke.py's
-# ATTN_TRAIN and SCAN_TRAIN), bf16, from this checkout's forward outputs.
+# ATTN_TRAIN, SCAN_TRAIN and NORM_TRAIN), bf16, from this checkout's forward
+# outputs.
 _CHILD_BWD = _CHILD.split("out = {}")[0] + r'''
 out = {}
 for name, (b, h, kh, s, w) in {"attn_bwd_hymba": (2, 25, 5, 2048, 1024),
@@ -93,6 +95,10 @@ for name, (b, s, di, n) in {"scan_bwd_hymba": (2, 2048, 3200, 16),
     a, d, dy = -torch.exp(0.3 * randn(di, n)), 1 + 0.1 * randn(di), randn(b, s, di)
     hck = ss.selective_scan_fwd(u, dt, a, bm, cm, d, checkpoints=True)[2]
     out[name] = graph_ms(lambda: ss.selective_scan_bwd(u, dt, a, bm, cm, d, hck, dy))
+for name, (rows, d) in {"norm_bwd_hymba": (4096, 1600), "norm_bwd_qwen": (8192, 896),
+                        "norm_bwd_falcon": (4096, 4096)}.items():
+    x, dy, scale = randn(rows, d).bfloat16(), randn(rows, d).bfloat16(), (0.1 * randn(d)).bfloat16()
+    out[name] = graph_ms(lambda: rn.rms_norm_bwd(x, scale, dy))
 print(json.dumps(out))
 '''
 
@@ -101,7 +107,7 @@ def main(argv=None) -> list:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", required=True, help="the other checkout's src directory")
     ap.add_argument("--backward", action="store_true",
-                    help="time K2's and K3's backward kernels at the training shapes")
+                    help="time the backward kernels at the training shapes")
     ap.add_argument("--out", default=None, help="write the turns here as JSON")
     args = ap.parse_args(argv)
     trees = {"this": str(Path(__file__).resolve().parents[2]),

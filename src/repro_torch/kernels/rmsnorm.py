@@ -25,8 +25,9 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "launches", "bwd_launches", "DTYPES",
-           "MAX_D", "PER_LANE", "WARPS", "ROWS_PER_WARP", "MAX_BLOCKS", "BWD_MAX_BLOCKS",
-           "LaunchShape", "launch_shape", "BwdShape", "bwd_launch_shape"]
+           "MAX_D", "PER_LANE", "WARPS", "ROWS_PER_WARP", "MAX_BLOCKS", "BWD_PER_LANE",
+           "BWD_SPLITS", "BWD_PLANS", "BWD_WARPS", "BWD_BLOCKS_PER_SM", "LaunchShape",
+           "launch_shape", "BwdShape", "bwd_launch_shape", "bwd_smem_bytes", "bwd_registers"]
 
 #: dtypes the kernel is instantiated for, for x and (independently) scale.
 DTYPES = (torch.float32, torch.bfloat16)
@@ -45,11 +46,24 @@ WARPS = 4
 ROWS_PER_WARP = 2
 MAX_BLOCKS = 528
 
-#: The backward's grid: at most two blocks an SM (132 SMs), each writing one
-#: f32 partial row of ds.
-BWD_MAX_BLOCKS = 264
-#: Shared memory a backward block may use: one f32 row of ds a warp.
-_BWD_SMEM = 227 * 1024
+#: The backward's register path: 16-byte vectors of x and dy a lane holds
+#: (kV), over 1, 2 or 4 warps a row (kSplit).  A row of more than 4 vectors
+#: a lane splits, so d = 4096 bf16 holds 4 a lane over 4 warps; a wider row
+#: streams.  ``BWD_PLANS`` are the (per_lane, split) pairs the C's ``picked``
+#: instantiates: 8 vectors a lane took 209-242 registers, one 8-warp block an
+#: SM, and was slower at every training shape on an H100 (PERF.md §6).
+BWD_PER_LANE = (1, 2, 4)
+BWD_SPLITS = (1, 2, 4)
+BWD_PLANS = ((1, 1), (2, 1), (4, 1), (4, 2), (4, 4))
+#: The backward's grid: blocks of BWD_WARPS warps, at most BWD_BLOCKS_PER_SM
+#: blocks an SM (one wave at ~126 registers a thread), each block writing one
+#: f32 partial row of ds.  Chosen on an H100 among 4- and 8-warp blocks and
+#: 1-4 blocks an SM at the three training shapes (``bwd_variants``).
+BWD_WARPS = 8
+BWD_BLOCKS_PER_SM = 2
+#: Dynamic shared memory a backward block may use (one f32 row of ds a
+#: team): 227 KB less the split rows' sums the kernel keeps beside it.
+_BWD_SMEM = 227 * 1024 - 128
 
 #: Forward and backward launches since import (or since a caller last set
 #: them to 0).
@@ -78,19 +92,46 @@ def launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True) -> LaunchS
 
 
 class BwdShape(NamedTuple):
-    vec: bool    # 16-byte loads; False: scalar loads
-    warps: int   # warps of a block, one row each at a time
-    blocks: int  # grid, and the rows of the ds partials
+    vec: bool      # 16-byte loads; False: scalar loads
+    per_lane: int  # 16-byte vectors of the row a lane holds; 0: the streaming path
+    split: int     # warps that share a row (a team)
+    warps: int     # warps of a block
+    blocks: int    # grid, and the rows of the ds partials
 
 
-def bwd_launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True) -> BwdShape:
+def bwd_launch_shape(rows: int, d: int, x_dtype, *, aligned: bool = True,
+                     sms: int = _build.SMS) -> BwdShape:
     """The backward's instantiation and grid for ``rows`` rows of ``d``
-    elements of ``x_dtype``.  ``aligned``: x, scale, dy and dx start on 16
-    bytes.  A block's warps each keep an f32 row of ds in shared memory, so
-    wide rows take fewer warps."""
-    vec = aligned and d % (16 // x_dtype.itemsize) == 0
-    warps = next(w for w in (WARPS, 2, 1) if w * d * 4 <= _BWD_SMEM or w == 1)
-    return BwdShape(vec, warps, min(BWD_MAX_BLOCKS, math.ceil(rows / warps)))
+    elements of ``x_dtype`` on a card of ``sms`` SMs.  ``aligned``: x,
+    scale, dy and dx start on 16 bytes.  The register path takes rows of at
+    most 4 warps x 4 vectors a lane; the streaming path keeps a warp's f32 row
+    of ds in shared memory, so wide rows take fewer warps."""
+    width = 16 // x_dtype.itemsize
+    vec = aligned and d % width == 0
+    need = math.ceil(d / width / 32)  # vectors a lane, one warp a row
+    most = BWD_PER_LANE[-1]
+    if vec and need <= BWD_SPLITS[-1] * most:  # the row fits a team's registers
+        split = next(s for s in BWD_SPLITS if need <= s * most)
+        per_lane = next(v for v in BWD_PER_LANE if split * v >= need)
+        warps = BWD_WARPS
+    else:
+        split, per_lane = 1, 0
+        warps = next(w for w in (BWD_WARPS, 4, 2, 1) if w * d * 4 <= _BWD_SMEM or w == 1)
+    blocks = min(BWD_BLOCKS_PER_SM * sms, math.ceil(rows / (warps // split)))
+    return BwdShape(vec, per_lane, split, warps, blocks)
+
+
+def bwd_smem_bytes(shape: BwdShape, d: int) -> int:
+    """Dynamic shared memory of a backward block: an f32 row of ds a team."""
+    return shape.warps // shape.split * d * 4
+
+
+def bwd_registers(per_lane: int, x_dtype, scale_dtype) -> int:
+    """32-bit registers a lane of the register path holds its row in: x and
+    dy packed (4 words a vector each), scale packed and the f32 sums of ds
+    (one word an element)."""
+    width = 16 // x_dtype.itemsize
+    return per_lane * (4 + 4 + width * scale_dtype.itemsize // 4 + width)
 
 
 def _kernel():
@@ -131,7 +172,7 @@ def _bwd_kernel():
     if _bwd_fn is None:
         lib = ctypes.CDLL(str(_build.build("rms_norm_bwd")))
         fn = lib.rms_norm_bwd
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
         err = lib.rms_norm_bwd_error_string
@@ -156,14 +197,16 @@ def rms_norm_bwd(x, scale, dy, *, eps: float = 1e-6):
     dx = torch.empty_like(x)
     ds = torch.empty_like(scale)
     aligned = not any(t.data_ptr() % 16 for t in (x, scale, dy, dx))
-    shape = bwd_launch_shape(rows, d, x.dtype, aligned=aligned)
+    shape = bwd_launch_shape(rows, d, x.dtype, aligned=aligned,
+                             sms=_build.device_sms(x.device))
     partial = torch.empty((shape.blocks, d), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
                  partial.data_ptr(), ds.data_ptr(), rows, d,
                  int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-                 int(shape.vec), shape.warps, shape.blocks, eps, stream)
+                 int(shape.vec), shape.per_lane, shape.split, shape.warps, shape.blocks, eps,
+                 stream)
     if err:
         raise RuntimeError(f"rms_norm_bwd launch failed: {err_str(err).decode()} ({err})")
     bwd_launches += 1

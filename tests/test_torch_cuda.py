@@ -567,6 +567,49 @@ def test_norm_bwd_kernel_matches_plain_version(cuda, rows, d, dtype, scale_dtype
     _grads_agree(got, want, dtype, "rms_norm")
 
 
+# The shapes training gives the RMSNorm backward (hymba-1.5b, qwen2-0.5b,
+# falcon-mamba-7b microbatches), scale in x's dtype as a model's is: the
+# register path over 2, 1 and 4 warps a row in bf16.
+NORM_TRAIN = [(4096, 1600), (8192, 896), (4096, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", NORM_TRAIN)
+def test_norm_bwd_kernel_at_training_shapes(cuda, rows, d, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn(d, generator=g, device=cuda)).to(dtype)
+    dy = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    before = rn.bwd_launches
+    got = _autograd(lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy)
+    torch.cuda.synchronize()
+    assert rn.bwd_launches == before + 1
+    _grads_agree(got, ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype, "rms_norm, training")
+
+
+# Edges of the RMSNorm backward's paths (as chip_smoke.py's NORM_BWD_EDGES):
+# scalar loads, a row wider than the register path, one row, fewer rows than
+# a block's teams, an f32 x with a bf16 scale, an x off 16 bytes.
+NORM_BWD_EDGES = [(37, 1001, None, 0), (64, 8192, None, 0), (1, 1600, None, 0),
+                  (1, 4096, None, 0), (3, 896, None, 0), (3, 1600, None, 0),
+                  (300, 2048, torch.bfloat16, 0), (4, 1600, None, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d,scale_dtype,offset", NORM_BWD_EDGES)
+def test_norm_bwd_kernel_edges(cuda, rows, d, scale_dtype, offset, dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    if offset:
+        buf = torch.empty(rows * d + offset, dtype=dtype, device=cuda)
+        x = buf[offset:].view(rows, d).copy_(x)
+        assert x.data_ptr() % 16
+    scale = (0.1 * torch.randn(d, generator=g, device=cuda)).to(scale_dtype or dtype)
+    dy = torch.randn(rows, d, generator=g, device=cuda).to(dtype)
+    got = _autograd(lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy)
+    _grads_agree(got, ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype, "rms_norm, edges")
+
+
 # Edges of the bf16 tensor-core backward (64-row query tiles by 64-key
 # tiles): Sq and Sk no multiple of 64 (and Sq != Sk), windows that start
 # mid-tile, hd 16 and 128, GQA groups 1 and 7, a key tile no query reaches.
@@ -617,7 +660,8 @@ def test_attention_bwd_tc_kernel_gqa_splits(cuda, shape, splits):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_bwd_kernels_give_the_same_bits_on_every_run(cuda, dtype):
     """No atomics: two backward calls on the same inputs agree bit for bit
-    (the GQA sums of dK/dV in registers, the scan's sums in a fixed order)."""
+    (the GQA sums of dK/dV in registers, the scan's and RMSNorm's ds sums in
+    a fixed order)."""
     q, k, v = _inputs(2, 10, 2, 300, 300, 64, dtype, cuda)
     do = torch.randn(q.shape, device=cuda).to(dtype)
     o, lse = fa.flash_attention_fwd(q, k, v, causal=True, window=100, with_lse=True)
@@ -629,6 +673,14 @@ def test_bwd_kernels_give_the_same_bits_on_every_run(cuda, dtype):
     hck = ss.selective_scan_fwd(*args, checkpoints=True)[2]
     runs = [ss.selective_scan_bwd(*args, hck, dy) for _ in range(2)]
     assert all(torch.equal(x, y) for x, y in zip(*runs))
+    # RMSNorm: hymba-1.5b's training rows (register path, 2 warps a row) and
+    # a row past the register path (streaming)
+    for rows, d in ((4096, 1600), (64, 8192)):
+        x, dy = (torch.randn(rows, d, device=cuda).to(dtype) for _ in range(2))
+        scale = (0.1 * torch.randn(d, device=cuda)).to(dtype)
+        assert bool(rn.bwd_launch_shape(rows, d, dtype).per_lane) == (d == 1600)
+        runs = [rn.rms_norm_bwd(x, scale, dy) for _ in range(2)]
+        assert all(torch.equal(a, b) for a, b in zip(*runs))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

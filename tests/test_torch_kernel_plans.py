@@ -7,8 +7,8 @@ range per 64-row query tile and its mask test (``csrc/flash_attention.cu``
 instantiation (``rmsnorm.launch_shape``) and the selective-scan kernel's
 plan (``selective_scan.launch_plan``: lanes per channel, channels per block,
 grid, shared memory), and the backward kernels' tiles and plans
-(``query_tile_range``, ``bwd_tc_smem_bytes``, ``bwd_launch_plan``).  These
-tests hold the mirrors
+(``query_tile_range``, ``bwd_tc_smem_bytes``, ``bwd_launch_plan``,
+``rmsnorm.bwd_launch_shape``).  These tests hold the mirrors
 against the mask and the widths they must cover.
 """
 import numpy as np
@@ -309,14 +309,100 @@ def test_bwd_tc_shared_memory_fits_a_block(hd):
     assert 2 * max(dkdv, dq) <= 228 * 1024    # two blocks an SM (launch bounds)
 
 
-@pytest.mark.parametrize("rows,d,warps", [(4096, 1600, 4), (6144, 4096, 4), (3, 20000, 2),
-                                          (1, 57000, 1)])
-def test_norm_bwd_shape_fits_a_block(rows, d, warps):
-    shape = rn.bwd_launch_shape(rows, d, torch.bfloat16)
-    assert shape.warps == warps and shape.warps * d * 4 <= 227 * 1024
-    assert 1 <= shape.blocks <= rn.BWD_MAX_BLOCKS
-    assert shape.blocks * shape.warps >= min(rows, rn.BWD_MAX_BLOCKS * shape.warps)
-    assert not rn.bwd_launch_shape(rows, d + 1, torch.bfloat16).vec  # d % 8 != 0
+# The RMSNorm backward (csrc/rms_norm_bwd.cu): register path (vectors a
+# lane, warps a row) or streaming path (per_lane 0, one warp a row), by d,
+# dtype and alignment.  The C instantiates only rn.BWD_PLANS (``picked``).
+@pytest.mark.parametrize("d,dtype,aligned,plan", [
+    (1600, torch.bfloat16, True, (4, 2)),     # hymba-1.5b: 200 vectors over 2 warps
+    (896, torch.bfloat16, True, (4, 1)),      # qwen2-0.5b: 112 vectors, one warp
+    (4096, torch.bfloat16, True, (4, 4)),     # falcon-mamba-7b: 512 vectors over 4 warps
+    (4104, torch.bfloat16, True, (0, 1)),     # one vector past the register path
+    (8192, torch.bfloat16, True, (0, 1)),     # streams
+    (2048, torch.float32, True, (4, 4)),      # the widest f32 row in registers
+    (4096, torch.float32, True, (0, 1)),
+    (1001, torch.bfloat16, True, (0, 1)),     # d % 8 != 0: scalar loads
+    (1600, torch.bfloat16, False, (0, 1)),    # a view off 16 bytes: scalar loads
+    (64, torch.bfloat16, True, (1, 1)),
+    (512, torch.bfloat16, True, (2, 1)),
+    (1024, torch.float32, True, (4, 2)),      # 256 vectors: two warps' 4 a lane
+    (1028, torch.float32, True, (4, 4)),      # 257: one past them, over 4 warps
+])
+def test_norm_bwd_register_or_streaming_path(d, dtype, aligned, plan):
+    shape = rn.bwd_launch_shape(64, d, dtype, aligned=aligned)
+    assert (shape.per_lane, shape.split) == plan
+    width = 16 // dtype.itemsize
+    assert shape.vec == (aligned and d % width == 0)
+    if shape.per_lane:
+        assert (shape.per_lane, shape.split) in rn.BWD_PLANS
+        assert 32 * shape.split * shape.per_lane * width >= d > 0  # the team holds the row
+        assert shape.warps == rn.BWD_WARPS and shape.warps % shape.split == 0
+
+
+@settings(max_examples=300, deadline=None)
+@given(rows=st.integers(1, 20000), d=st.integers(1, rn.MAX_D), dtype=st.sampled_from(rn.DTYPES),
+       aligned=st.booleans(), sms=st.integers(1, 200))
+def test_norm_bwd_every_plan_is_instantiated_and_covers_its_rows(rows, d, dtype, aligned, sms):
+    shape = rn.bwd_launch_shape(rows, d, dtype, aligned=aligned, sms=sms)
+    width = 16 // dtype.itemsize
+    if shape.per_lane:
+        assert shape.vec and (shape.per_lane, shape.split) in rn.BWD_PLANS
+        need = -(-d // width // 32) if d % width == 0 else None
+        # the fewest vectors a lane, over the fewest warps a row, that hold it
+        assert shape.split == min(s for s in rn.BWD_SPLITS if need <= s * rn.BWD_PER_LANE[-1])
+        assert shape.per_lane * shape.split >= need
+    else:
+        assert shape.split == 1 and (not shape.vec or d > 32 * 16 * width)
+    teams = shape.warps // shape.split
+    assert rn.bwd_smem_bytes(shape, d) <= 227 * 1024 - 128
+    assert 1 <= shape.blocks <= rn.BWD_BLOCKS_PER_SM * sms
+    # every row has a team: one row a team, or every block's teams busy
+    assert shape.blocks * teams >= rows or shape.blocks == rn.BWD_BLOCKS_PER_SM * sms
+    assert (shape.blocks - 1) * teams < rows
+
+
+@pytest.mark.parametrize("d,dtype,warps", [
+    (rn.MAX_D, torch.float32, 1),       # 226 KB of f32: one warp, one row of ds
+    (57000, torch.bfloat16, 1),
+    (20000, torch.float32, 2),
+    (8192, torch.bfloat16, 4),          # 8 warps would need 256 KB
+    (4096, torch.float32, 8),
+    (4096, torch.bfloat16, 8),          # the register path: 2 teams of 4 warps
+])
+def test_norm_bwd_shared_memory_fits_a_block(d, dtype, warps):
+    shape = rn.bwd_launch_shape(16, d, dtype)
+    assert shape.warps == warps
+    assert rn.bwd_smem_bytes(shape, d) == warps // shape.split * d * 4
+    assert rn.bwd_smem_bytes(shape, d) <= 227 * 1024 - 128  # beside the split rows' sums
+    if warps < rn.BWD_WARPS:  # the next wider block would not fit
+        assert 2 * warps * d * 4 > 227 * 1024 - 128
+
+
+@pytest.mark.parametrize("rows,d,sms,blocks", [
+    (4096, 1600, 132, 264),   # hymba-1.5b's training rows: one wave, two blocks an SM
+    (8192, 896, 132, 264),    # qwen2-0.5b's
+    (4096, 4096, 132, 264),   # falcon-mamba-7b's
+    (4096, 1600, 114, 228),   # a card of 114 SMs
+    (100, 1600, 132, 25),     # 4 teams a block, one row each
+    (3, 896, 132, 1),         # fewer rows than a block's 8 teams
+    (1, 4096, 132, 1),
+    (64, 8192, 132, 16),      # streaming, 4-warp blocks
+])
+def test_norm_bwd_grid_against_the_sm_count(rows, d, sms, blocks):
+    assert rn.bwd_launch_shape(rows, d, torch.bfloat16, sms=sms).blocks == blocks
+
+
+@pytest.mark.parametrize("x_dtype", rn.DTYPES)
+@pytest.mark.parametrize("scale_dtype", rn.DTYPES)
+def test_norm_bwd_registers_at_falcon_width(x_dtype, scale_dtype):
+    # d = 4096 (2048 in f32), the widest row the register path holds: a
+    # lane's x, dy, scale and ds sums take at most 96 of the 128 registers a
+    # thread has at two 8-warp blocks an SM (ptxas read 124-128 in all on an
+    # H100), far under the 255 a thread may use
+    d = 4096 if x_dtype == torch.bfloat16 else 2048
+    shape = rn.bwd_launch_shape(4096, d, x_dtype)
+    words = rn.bwd_registers(shape.per_lane, x_dtype, scale_dtype)
+    assert shape.per_lane == 4 and words <= 96 < 255
+    assert rn.bwd_registers(8, x_dtype, scale_dtype) > 96  # why 8 a lane is not a plan
 
 
 @pytest.mark.parametrize("n", ss.STATES)
