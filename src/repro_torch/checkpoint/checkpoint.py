@@ -11,7 +11,8 @@ Leaves are written in the JAX layout (:mod:`repro_torch.convert`), so a
 checkpoint written by either package restores in the other: a CNN
 surrogate's convolution kernels are laid out back (its params are
 recognised by their names, ``convert.is_surrogate_params``), a language
-model's leaves already are in the JAX layout.  The port's train state is
+model's leaves (decoder-only or encoder-decoder, ``params__enc_layers__
+attn__wq``) already are in the JAX layout.  The port's train state is
 ``{"params": {name: tensor}, "opt": OptState(mu, nu, step), ["ef": {name:
 tensor}]}``; flat names map to pytree paths by ``.`` → ``__``.
 bf16 leaves are written widened to f32 (numpy has no bf16 without

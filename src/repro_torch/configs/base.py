@@ -111,6 +111,17 @@ class ModelConfig:
         p += d  # final norm
         return int(p)
 
+    def num_active_params(self) -> int:
+        """Params touched per token (moe: the top-k and shared experts only),
+        as the JAX package's ``ModelConfig.num_active_params``."""
+        if self.family != "moe":
+            return self.num_params()
+        d = self.d_model
+        dense_like = self.num_params() - self.num_layers * (
+            self.num_experts + self.num_shared_experts) * 3 * d * self.d_ff
+        active = self.num_layers * (self.top_k + self.num_shared_experts) * 3 * d * self.d_ff
+        return int(dense_like + active)
+
     def reduced(self) -> "ModelConfig":
         """Same family/wiring, tiny dims — used by the CPU tests."""
         h = min(self.num_heads, 4)

@@ -4,9 +4,12 @@
 into numpy arrays (``jax.tree.map(np.asarray, params)``) and returns the
 same nested dict of torch tensors, leaf names and layouts unchanged: the
 language models keep the JAX layout.  ``lm_params_from_jax`` /
-``lm_params_to_jax`` carry an LM tree to the flat dict the port's train
-step, optimizer and checkpoints take (``layers.ssm.x_proj``: the pytree
-path joined by dots) and back.
+``lm_params_to_jax`` carry a language model's tree to the flat dict the
+port's train step, optimizer and checkpoints take (the pytree path joined by
+dots) and back: the decoder-only trees (``layers.ssm.x_proj``, the moe
+family's ``layers.router``, f32 whatever the param dtype, and
+``layers.we_gate``, the vlm family's ``mm_proj``) and the encoder-decoder's
+(``enc_layers.attn.wq``, ``dec_layers.cross.wk``, ``enc_final.scale``).
 
 The CNN surrogates do not: their convolution weights are in PyTorch's layout
 (:mod:`repro_torch.models.cnn`).  ``surrogate_params_from_jax`` and

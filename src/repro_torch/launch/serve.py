@@ -7,9 +7,14 @@
         --attn-impl pallas --ssm-impl pallas --norm-impl pallas
     PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
         --ssm-impl pallas --norm-impl pallas
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-moe-a2.7b
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium
 
-Weights are random, from seed 0; prompts are random tokens from seed 0.
-Runs on the card unless ``--device cpu`` is given.
+Weights are random, from seed 0; from one numpy generator seeded 0, the
+encoder-decoder's source frames (standard normal) and then the prompts
+(random tokens), as the JAX launcher draws them.  The engine refuses the
+vlm family, as the JAX engine cannot serve it.  Runs on the card unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
@@ -21,7 +26,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.serve.engine import ServeEngine
 
 
@@ -50,15 +55,21 @@ def main(argv=None):
         cfg = cfg.replace(kv_cache_dtype="int8")
     device = resolve_device(args.device)
 
-    params = lm.init_lm(cfg, seed=0, device=device)
+    init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
+    params = init(cfg, seed=0, device=device)
     engine = ServeEngine(cfg, params, max_len=args.prompt_len + args.gen + 1,
                          attn_impl=args.attn_impl, ssm_impl=args.ssm_impl,
                          norm_impl=args.norm_impl, device=device)
-    prompts = np.random.default_rng(0).integers(
+    rng = np.random.default_rng(0)
+    source = None
+    if cfg.family == "encdec":
+        source = rng.standard_normal(
+            (args.batch, cfg.source_len, cfg.d_model)).astype(np.float32)
+    prompts = rng.integers(
         0, cfg.vocab_size, size=(args.batch, args.prompt_len)).astype(np.int32)
 
     t0 = time.perf_counter()
-    out = engine.generate(prompts, args.gen)  # returns host numpy: synchronised
+    out = engine.generate(prompts, args.gen, source=source)  # host numpy: synchronised
     dt = time.perf_counter() - t0
     where = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
     print(f"generated {out.shape} in {dt:.2f}s "

@@ -14,14 +14,18 @@ model's training step, with checkpoints; and plan artifacts without training.
     PYTHONPATH=src python -m repro_torch.launch.train plan --inspect /tmp/solar.plan.npz
 
 The counterpart of the JAX package's ``launch/train.py`` (``run_train``,
-``run_plan``) for the dense, ssm and hybrid families, built on the port's own
-``core`` and ``data`` copies.  A synthetic token store (int32 rows of
-``seq_len + 1``, random from the seed) is created at ``--data`` on first use;
-each planned step's global batch, padded to the plan's capacity with
-zero-weight rows, is split into ``grad_accum`` microbatches.  The model
-starts from ``init_lm`` with seed 0.  Runs on the card unless ``--device
-cpu`` is given; there, attention, the selective scan and RMSNorm go through
-the hand-written kernels, forward and backward.  The ``distributed`` and
+``run_plan``) for every family, built on the port's own ``core`` and
+``data`` copies.  A synthetic token store (int32 rows of ``seq_len + 1``,
+random from the seed) is created at ``--data`` on first use; each planned
+step's global batch, padded to the plan's capacity with zero-weight rows, is
+split into ``grad_accum`` microbatches.  As in the JAX launcher, the vlm
+family gets zero patch embeddings ``[B, num_patches, D]`` and the
+encoder-decoder zero source frames ``[B, source_len, D]``, and each family
+trains through its module's init (seed 0) and ``train_loss``
+(``models/encdec.py`` for the encoder-decoder, ``models/lm.py`` for the
+rest).  Runs on the card unless ``--device cpu`` is given; there,
+attention, the selective scan and RMSNorm go through the hand-written
+kernels, forward and backward.  The ``distributed`` and
 ``stream`` subcommands (multi-process runtime, streaming ingestion) are not
 ported yet.
 """
@@ -45,7 +49,7 @@ from repro_torch.data import (
     build_pipeline,
     build_store,
 )
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
 from repro_torch.train.trainer import Trainer
@@ -229,12 +233,19 @@ def loader_spec(args) -> LoaderSpec:
 def make_batch_fn(cfg, capacity: int):
     """StepBatch -> ``{"tokens", "labels", "weights"}`` numpy arrays: the
     padded global batch of ``to_global``, each row ``seq_len + 1`` tokens
-    (mod the vocabulary) split into inputs and next-token labels."""
+    (mod the vocabulary) split into inputs and next-token labels; plus zero
+    f32 ``patches`` (vlm) or ``source`` frames (encdec)."""
     def make_batch(sb):
         data, weights = sb.to_global(capacity)
-        return {"tokens": (data[:, :-1] % cfg.vocab_size).astype(np.int32),
-                "labels": (data[:, 1:] % cfg.vocab_size).astype(np.int32),
-                "weights": np.asarray(weights, np.float32)}
+        batch = {"tokens": (data[:, :-1] % cfg.vocab_size).astype(np.int32),
+                 "labels": (data[:, 1:] % cfg.vocab_size).astype(np.int32),
+                 "weights": np.asarray(weights, np.float32)}
+        b = data.shape[0]
+        if cfg.family == "vlm":
+            batch["patches"] = np.zeros((b, cfg.num_patches, cfg.d_model), np.float32)
+        if cfg.family == "encdec":
+            batch["source"] = np.zeros((b, cfg.source_len, cfg.d_model), np.float32)
+        return batch
 
     return make_batch
 
@@ -243,15 +254,16 @@ def make_step(cfg, args):
     """The launcher's optimizer config and training step on flat params
     (``train_loss``'s 'auto' paths: the kernels on the card)."""
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps)
+    train_loss = encdec.train_loss if cfg.family == "encdec" else lm.train_loss
 
     def loss_fn(p, b):
-        return lm.train_loss(lm.nested_params(p), b, cfg)
+        return train_loss(lm.nested_params(p), b, cfg)
 
     return opt, make_train_step(cfg, opt, loss_fn)
 
 
 def train(args, device=None, *, cfg=None) -> Trainer:
-    """Build the store, the pipeline and the model (``init_lm`` from
+    """Build the store, the pipeline and the model (its family's init from
     ``SEED``), train ``args.steps`` planned steps, and return the finished
     Trainer.  ``cfg`` defaults to ``--arch`` (``reduced()`` with
     ``--reduced``)."""
@@ -259,7 +271,8 @@ def train(args, device=None, *, cfg=None) -> Trainer:
     if cfg is None:
         cfg = get_config(args.arch)
         cfg = cfg.reduced() if args.reduced else cfg
-    lm.check_supported(cfg)
+    if cfg.family != "encdec":
+        lm.check_supported(cfg)
     if args.data is None:
         args.data = os.path.join(tempfile.gettempdir(), f"solar_tokens_torch.{args.backend}")
     spec = loader_spec(args)
@@ -268,9 +281,9 @@ def train(args, device=None, *, cfg=None) -> Trainer:
                         fill="random")
     try:
         loader = build_pipeline(spec, store=store)
-        params = lm.flat_params(lm.init_lm(cfg, seed=SEED, device=device))
+        init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
         opt, step = make_step(cfg, args)
-        state = init_train_state(params, opt)
+        state = init_train_state(lm.flat_params(init(cfg, seed=SEED, device=device)), opt)
         skip = 0
         if args.resume and args.checkpoint_dir:
             state, skip = Trainer.try_restore(args.checkpoint_dir, state,
@@ -283,6 +296,9 @@ def train(args, device=None, *, cfg=None) -> Trainer:
             skip_steps=skip, prefetch_depth=args.prefetch_depth,
             num_workers=args.num_workers, device=device,
         )
+        # The trainer holds the only reference, so each step's new state frees
+        # the one before it (a step keeps the old state until it returns).
+        del state
         trainer.run(max_steps=args.steps)
     finally:
         store.close()

@@ -1,6 +1,6 @@
-"""Model building blocks on tensors: the subset of the JAX package's
-``models/layers.py`` that the dense, sliding-window and Mamba-1 blocks use,
-for serving and training.
+"""Model building blocks on tensors: the port of the JAX package's
+``models/layers.py`` (dense, sliding-window, MoE, Mamba-1 and encoder-decoder
+blocks), for serving and training.
 
 Conventions follow the JAX package: activations ``x [B, S, D]``; attention
 internals head-major ``q [B, H, S, hd]``, ``k/v [B, K, S, hd]`` (GQA: K
@@ -17,8 +17,6 @@ CPU inputs.  Every path is differentiable: the kernels through their
 backward kernels, the plain ``rms_norm`` through the JAX package's custom
 VJP (cotangents in the input dtypes), the rest through autograd.
 
-Not ported yet (ROADMAP.md Queue 1): ``layer_norm``, sinusoidal positions,
-``gelu_mlp`` and ``moe_layer``.
 ``constrain`` has no counterpart: one card has no mesh to constrain to.
 """
 from __future__ import annotations
@@ -33,6 +31,8 @@ from repro_torch.kernels.ref import NEG_INF, attention_ref, rms_norm_ref, rms_no
 
 __all__ = [
     "rms_norm",
+    "layer_norm",
+    "sinusoidal_positions",
     "apply_rope",
     "repeat_kv",
     "attention_ref",
@@ -42,6 +42,9 @@ __all__ = [
     "quantize_kv",
     "decode_attention",
     "swiglu_mlp",
+    "gelu_mlp",
+    "route",
+    "moe_layer",
     "mamba_block",
     "mamba_decode_step",
 ]
@@ -72,6 +75,29 @@ def rms_norm(x, scale, eps: float = 1e-6, *, impl: str = "auto"):
     if impl not in ("ref", "auto"):
         raise ValueError(f"unknown rms_norm impl {impl!r}")
     return _RMSNorm.apply(x, scale, eps)
+
+
+def layer_norm(x, scale, bias, eps: float = 1e-5):
+    """``(x - mean) * rsqrt(var + eps) * scale + bias`` in f32, cast to x's
+    dtype.  The encoder-decoder passes ``cfg.norm_eps`` (1e-6 for
+    whisper-medium), not this default."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, dtype=torch.float32, device=None):
+    """[length, dim] table: sin at even, cos at odd columns, in f32, cast to
+    ``dtype``."""
+    pos = torch.arange(length, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, dim, 2, dtype=torch.float32, device=device)
+                    * (-math.log(10000.0) / dim))
+    pe = torch.zeros((length, dim), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
 
 
 def apply_rope(x, positions, theta: float = 1e4):
@@ -242,6 +268,87 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, k_scale=None,
 
 def swiglu_mlp(x, wi_gate, wi_up, wo):
     return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+
+
+def gelu_mlp(x, wi, bi, wo, bo):
+    """The JAX package's ``jax.nn.gelu(approximate=True)``: the tanh form,
+    not torch's default erf form."""
+    return F.gelu((x @ wi) + bi, approximate="tanh") @ wo + bo
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (Switch-style dropping dispatch)
+# ---------------------------------------------------------------------------
+
+
+def route(x, router_w, *, top_k: int, num_real_experts: int):
+    """The router of :func:`moe_layer`.  x [..., D]; router_w [D, E_pad] f32.
+
+    f32 logits ``x @ router_w`` (in full f32 on the card: TF32 stays off, as
+    it is by PyTorch's default), pad experts (index >= ``num_real_experts``)
+    masked with ``NEG_INF`` (-0.7 x the f32 max, as in the JAX package, not
+    -inf), softmax, top-k, the k gates renormalised to sum to 1.
+    Returns (probs [..., E_pad] f32, gates [..., k] f32, expert_idx [..., k]).
+    ``torch.topk`` and ``lax.top_k`` order distinct values alike."""
+    e_pad = router_w.shape[1]
+    logits = x.float() @ router_w.float()
+    if e_pad > num_real_experts:
+        pad = torch.arange(e_pad, device=x.device) >= num_real_experts
+        logits = torch.where(pad, NEG_INF, logits)
+    probs = torch.softmax(logits, dim=-1)
+    gates, expert_idx = torch.topk(probs, top_k, dim=-1)
+    gates = gates / torch.clamp_min(gates.sum(dim=-1, keepdim=True), 1e-9)
+    return probs, gates, expert_idx
+
+
+def moe_layer(x, router_w, we_gate, we_up, we_down, *, top_k: int,
+              num_real_experts: int, capacity_factor: float = 1.25,
+              group_size: int = 256, shared: tuple | None = None):
+    """Top-k token-choice MoE with grouped one-hot dispatch, as the JAX
+    package computes it.  x [B, S, D]; router_w [D, E_pad]; we_gate, we_up
+    [E_pad, D, F]; we_down [E_pad, F, D]; ``shared`` (wi_gate [D, F_s], wi_up,
+    wo) or None.  Returns (y [B, S, D], aux: the Switch load-balance loss).
+
+    Tokens go in groups of ``min(group_size, S)`` along the sequence; each
+    expert takes ``cap = max(1, ceil(gs * k * cf / E_real))`` choices a
+    group.  A choice's slot is the running count of earlier choices of its
+    expert in token-major order (token, then its k choices); choices past
+    ``cap`` are dropped.  Which choices drop depends on that order, so the
+    dispatch and combine stay one-hot einsums, not a scatter."""
+    b, s, d = x.shape
+    e_pad = router_w.shape[1]
+    gs = min(group_size, s)
+    if s % gs:
+        raise ValueError(f"sequence {s} is not a multiple of the group {gs}")
+    ng = s // gs
+    cap = max(1, int(math.ceil(gs * top_k * capacity_factor / num_real_experts)))
+
+    xg = x.reshape(b, ng, gs, d)
+    probs, gates, expert_idx = route(xg, router_w, top_k=top_k,
+                                     num_real_experts=num_real_experts)
+    onehot = F.one_hot(expert_idx, e_pad).float()                   # [b,ng,gs,k,e]
+    flat = onehot.reshape(b, ng, gs * top_k, e_pad)
+    pos_in_expert = (torch.cumsum(flat, dim=2) - flat).reshape(b, ng, gs, top_k, e_pad)
+    disp = onehot * (pos_in_expert < cap)
+    pos = torch.einsum("bnske,bnske->bnsk", pos_in_expert, disp)   # chosen slot
+    slot_oh = F.one_hot(pos.long(), cap).float()                    # [b,ng,gs,k,cap]
+    # dispatch [b,ng,gs,e,cap]: token -> (expert, slot); combine adds the gate
+    dispatch = torch.einsum("bnske,bnskc->bnsec", disp, slot_oh)
+    combine = torch.einsum("bnske,bnskc->bnsec", gates[..., None] * disp, slot_oh)
+
+    cd = x.dtype
+    xe = torch.einsum("bnsd,bnsec->bnecd", xg, dispatch.to(cd))      # [b,ng,e,cap,d]
+    h = F.silu(torch.einsum("bnecd,edf->bnecf", xe, we_gate)) * torch.einsum(
+        "bnecd,edf->bnecf", xe, we_up)
+    ye = torch.einsum("bnecf,efd->bnecd", h, we_down)
+    y = torch.einsum("bnecd,bnsec->bnsd", ye, combine.to(cd)).reshape(b, s, d)
+
+    me = probs.mean(dim=(0, 1, 2))                     # mean router prob
+    ce = onehot.sum(dim=3).mean(dim=(0, 1, 2))         # token fraction
+    aux = num_real_experts * torch.sum(me * ce) / top_k
+    if shared is not None:
+        y = y + swiglu_mlp(x, *shared)
+    return y, aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
-"""Decoder-only LM, dense, ssm (Mamba-1) and hybrid (Hymba) families: init,
-the training loss, prefill and one decode step.
+"""Decoder-only LM families: dense / GQA, MoE, the VLM stub (patch
+embeddings prepended to the token stream), ssm (Mamba-1) and hybrid (Hymba):
+init, the training loss, prefill and one decode step.
 
-The port of the JAX package's ``models/lm.py`` for those families.
+The port of the JAX package's ``models/lm.py``; the encoder-decoder family
+has its own module (``models/encdec.py``), as there.
 Parameters keep the JAX leaf names and layouts: per-layer leaves are stacked
 on a leading ``[L, ...]`` axis (``wq [L, d, h, hd]``, ``ssm.in_proj
 [L, d, 2*DI]``, ...), so carrying weights across is a copy
@@ -25,8 +27,14 @@ In the ssm family the JAX code computes ``rms_norm(x, ln2)`` and discards it
 (Mamba-1 has no MLP); the port skips that dead norm, with the same result
 (``ln2`` gets a zero gradient, as in JAX).
 
-Not ported yet (ROADMAP.md Queue 1): the moe, vlm and encdec families and
-the unrolled decode step.
+The moe family pads its experts to a multiple of 16 (``padded_experts``;
+qwen2-moe-a2.7b's 60 become 64) and masks the pad experts out of the router;
+its blocks return the Switch aux loss, which ``forward_hidden`` sums over
+the layers and ``train_loss`` adds times ``router_aux_coef``.  The vlm family
+prepends ``patches @ mm_proj`` to the token embeddings; rope positions run
+over patches and tokens together, the cache counts the prefix, and the loss
+skips the patch positions.  The JAX package's unrolled decode step
+(``_decode_step_unrolled``) is a variant for XLA and is not ported.
 """
 from __future__ import annotations
 
@@ -41,9 +49,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 
 __all__ = ["init_lm", "train_loss", "forward_hidden", "flat_params", "nested_params",
-           "prefill", "decode_step", "init_cache", "CacheSpec", "check_supported"]
+           "prefill", "decode_step", "init_cache", "CacheSpec", "check_supported",
+           "padded_experts"]
 
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -51,14 +60,28 @@ def _dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for a configuration this slice of the port does not run."""
+    """Raise for a configuration this module does not run: a family other
+    than ``FAMILIES`` (encdec has ``models/encdec.py``), or sinusoidal
+    positions (``rope_theta <= 0``), which no registered decoder-only
+    architecture uses."""
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name} is an encoder-decoder: it runs through repro_torch.models.encdec")
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported yet; "
-            "ROADMAP.md Queue 1 lists it")
+            f"family {cfg.family!r} ({cfg.name}) is none of the decoder-only "
+            f"families {FAMILIES}")
     if cfg.rope_theta <= 0:
         raise NotImplementedError(
-            "sinusoidal positions are not ported yet (ROADMAP.md Queue 1)")
+            "decoder-only models with sinusoidal positions (rope_theta <= 0) are "
+            "not ported: no registered architecture uses them")
+
+
+def padded_experts(cfg: ModelConfig, multiple: int = 16) -> int:
+    """Experts rounded up to ``multiple`` (0 outside the moe family)."""
+    if cfg.family != "moe":
+        return 0
+    return -(-cfg.num_experts // multiple) * multiple
 
 
 # ---------------------------------------------------------------------------
@@ -69,9 +92,10 @@ def check_supported(cfg: ModelConfig) -> None:
 def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random params in the JAX package's layout, from a seeded
     ``torch.Generator`` on ``device`` (not bit-equal to ``jax.random``).
-    Norm scales and biases start at zero, as in the JAX init.  Stacked leaves
-    are drawn one layer at a time, so no f32 temporary is larger than one
-    layer's slice of a leaf."""
+    Norm scales and biases start at zero, as in the JAX init; the moe router
+    is f32 whatever ``param_dtype`` is.  Stacked leaves are drawn one layer
+    at a time, so no f32 temporary is larger than one layer's slice of a
+    leaf."""
     check_supported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -79,14 +103,14 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     n, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
     h, k, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=pd):
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-        return (x * scale).to(pd)
+        return (x * scale).to(dtype)
 
-    def stacked(shape, scale):
-        out = torch.empty((n, *shape), dtype=pd, device=device)
+    def stacked(shape, scale, dtype=pd):
+        out = torch.empty((n, *shape), dtype=dtype, device=device)
         for i in range(n):
-            out[i] = normal(shape, scale)
+            out[i] = normal(shape, scale, dtype)
         return out
 
     def full(shape, value, dtype=pd):
@@ -104,12 +128,27 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         if cfg.qkv_bias:
             layers.update(bq=full((h, hd), 0.0), bk=full((k, hd), 0.0),
                           bv=full((k, hd), 0.0))
-    if cfg.family in ("dense", "hybrid"):
+    if cfg.family in ("dense", "vlm", "hybrid"):
         layers.update(
             wi_gate=stacked((d, f), s_in),
             wi_up=stacked((d, f), s_in),
             wo_mlp=stacked((f, d), 1.0 / math.sqrt(f)),
         )
+    elif cfg.family == "moe":
+        e = padded_experts(cfg)
+        layers.update(
+            router=stacked((d, e), s_in, torch.float32),
+            we_gate=stacked((e, d, f), s_in),
+            we_up=stacked((e, d, f), s_in),
+            we_down=stacked((e, f, d), 1.0 / math.sqrt(f)),
+        )
+        if cfg.num_shared_experts:
+            fs = f * cfg.num_shared_experts
+            layers.update(
+                ws_gate=stacked((d, fs), s_in),
+                ws_up=stacked((d, fs), s_in),
+                ws_down=stacked((fs, d), 1.0 / math.sqrt(fs)),
+            )
     if cfg.family in ("ssm", "hybrid"):
         di, ns, r, ck = (cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_dt_rank,
                          cfg.ssm_conv)
@@ -134,6 +173,8 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     }
     if not cfg.tie_embeddings:
         params["unembed"] = normal((d, cfg.vocab_size), s_in)
+    if cfg.family == "vlm":
+        params["mm_proj"] = normal((d, d), s_in)
     return params
 
 
@@ -173,9 +214,33 @@ def _layer(tree, i: int) -> dict:
             for name, leaf in tree.items()}
 
 
-def _mlp(x, lp, cfg: ModelConfig, norm_impl: str):
+def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False):
+    """ln2, then the SwiGLU MLP or, in the moe family, the experts.  Returns
+    (x + y, the moe aux loss or None).  A decode step routes each token as a
+    group of its own, with a capacity factor of at least 2."""
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps, impl=norm_impl)
-    return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"])
+    if cfg.family != "moe":
+        return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"]), None
+    shared = ((lp["ws_gate"], lp["ws_up"], lp["ws_down"])
+              if cfg.num_shared_experts else None)
+    cf = cfg.expert_capacity_factor
+    y, aux = L.moe_layer(h2, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
+                         top_k=cfg.top_k, num_real_experts=cfg.num_experts,
+                         capacity_factor=max(cf, 2.0) if decode else cf,
+                         group_size=1 if decode else 256, shared=shared)
+    return x + y, aux
+
+
+def _embed(params, tokens, cfg: ModelConfig, patches):
+    """Token embeddings in the compute dtype; the vlm family prepends
+    ``patches [B, P, D] @ mm_proj``."""
+    cd = _dtype(cfg.compute_dtype)
+    x = params["embed"][tokens].to(cd)
+    if cfg.family != "vlm":
+        return x
+    if patches is None:
+        raise ValueError("the vlm family needs patch embeddings (patches=)")
+    return torch.cat([patches.to(cd) @ params["mm_proj"].to(cd), x], dim=1)
 
 
 def _mamba(h, lp, cfg: ModelConfig, return_state: bool = True, **kw):
@@ -227,7 +292,8 @@ def nested_params(flat: dict) -> dict:
 def _block_train(x, lp, cfg: ModelConfig, positions, attn_impl: str, ssm_impl: str,
                  norm_impl: str):
     """One block, full-sequence causal (``lm.py:_block_train`` of the JAX
-    package; the dense, ssm and hybrid families carry no aux loss)."""
+    package).  Returns (x, the moe aux loss or None: the other families
+    carry none)."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
     if cfg.family == "ssm":
         mix = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
@@ -239,7 +305,7 @@ def _block_train(x, lp, cfg: ModelConfig, positions, attn_impl: str, ssm_impl: s
             ssm_o = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
             mix = _fuse(mix, ssm_o, lp, cfg, norm_impl)
     x = x + mix
-    return x if cfg.family == "ssm" else _mlp(x, lp, cfg, norm_impl)
+    return (x, None) if cfg.family == "ssm" else _mlp(x, lp, cfg, norm_impl)
 
 
 def _remat(fn, *args):
@@ -247,15 +313,16 @@ def _remat(fn, *args):
 
 
 def forward_hidden(params, tokens, cfg: ModelConfig, *, attn_impl: str = "auto",
-                   ssm_impl: str = "auto", norm_impl: str = "auto"):
-    """Embed -> blocks -> final norm.  tokens [B, S].  Returns (hidden
-    [B, S, D], aux: an f32 zero, as the JAX package's for these families).
-    With ``cfg.remat`` each block is recomputed in the backward; with a
-    ``scan_block`` that divides the layers too, each group of that many
-    blocks is one more checkpoint around its blocks' checkpoints, so the
-    residuals kept are L / K + K instead of L."""
+                   ssm_impl: str = "auto", norm_impl: str = "auto", patches=None):
+    """Embed -> blocks -> final norm.  tokens [B, S]; the vlm family takes
+    ``patches [B, P, D]`` too.  Returns (hidden [B, P + S, D], aux: the moe
+    blocks' aux losses summed in layer order from an f32 zero, which stays
+    zero in the other families).  With ``cfg.remat`` each block is
+    recomputed in the backward; with a ``scan_block`` that divides the layers
+    too, each group of that many blocks is one more checkpoint around its
+    blocks' checkpoints, so the residuals kept are L / K + K instead of L."""
     check_supported(cfg)
-    x = params["embed"][tokens].to(_dtype(cfg.compute_dtype))
+    x = _embed(params, tokens, cfg, patches)
     positions = torch.arange(x.shape[1], device=x.device)
     layers = params["layers"]
 
@@ -263,23 +330,24 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, attn_impl: str = "auto",
         return _block_train(x, _layer(layers, i), cfg, positions, attn_impl, ssm_impl,
                             norm_impl)
 
-    def run(x, i):
-        return _remat(block, x, i) if cfg.remat else block(x, i)
+    def run(x, aux, i):
+        x, a = _remat(block, x, i) if cfg.remat else block(x, i)
+        return x, aux if a is None else aux + a
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     k = cfg.scan_block
     if k and cfg.num_layers % k == 0 and cfg.remat:
-        def group(x, first):
+        def group(x, aux, first):
             for i in range(first, first + k):
-                x = run(x, i)
-            return x
+                x, aux = run(x, aux, i)
+            return x, aux
 
         for first in range(0, cfg.num_layers, k):
-            x = _remat(group, x, first)
+            x, aux = _remat(group, x, aux, first)
     else:
         for i in range(cfg.num_layers):
-            x = run(x, i)
-    hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
-    return hidden, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, aux = run(x, aux, i)
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl), aux
 
 
 def _ce_chunk(h, w32, labels, valid):
@@ -315,6 +383,8 @@ def train_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
     """Weighted next-token CE.  batch:
       tokens  [B, S] int   labels [B, S] int (shifted targets; -1 = ignore)
       weights [B] f32 (SOLAR per-sample mask: 0 = padding row; default 1)
+    The vlm family adds ``patches [B, P, D]``, whose positions carry no
+    loss; the moe family adds ``router_aux_coef * aux`` to the loss.
     Returns (loss, {"loss", "aux", "tokens"}).  ``tokens`` is the unclamped
     weight mass: gradient accumulation divides the summed gradient by the
     sum of ``tokens``, so an all-padding microbatch contributes exactly 0."""
@@ -323,10 +393,15 @@ def train_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
     if weights is None:
         weights = torch.ones((tokens.shape[0],), dtype=torch.float32, device=tokens.device)
     hidden, aux = forward_hidden(params, tokens, cfg, attn_impl=attn_impl,
-                                 ssm_impl=ssm_impl, norm_impl=norm_impl)
+                                 ssm_impl=ssm_impl, norm_impl=norm_impl,
+                                 patches=batch.get("patches"))
+    if cfg.family == "vlm":
+        hidden = hidden[:, -tokens.shape[1]:]  # drop the patch positions
     valid = (labels >= 0).float() * weights.float()[:, None]
     nll_sum, denom = _chunked_ce(params, hidden, labels, valid, cfg)
     loss = nll_sum / torch.clamp_min(denom, 1.0)
+    if cfg.family == "moe":
+        loss = loss + cfg.router_aux_coef * aux
     return loss, {"loss": loss, "aux": aux, "tokens": denom}
 
 
@@ -340,7 +415,10 @@ class CacheSpec:
     """Cache layout on one card: the true kv heads, ``cache_len`` positions
     (for a sliding window shorter than the sequence, a ring of ``window``
     positions indexed by ``pos % window``), int8 payload with f32 per-row
-    scales when ``quantized``.  The ssm family keeps no KV cache."""
+    scales when ``quantized``.  The ssm family keeps no KV cache.  The
+    encdec family's self-attention cache takes the same layout
+    (``models/encdec.py``); its K/V are never quantized, as in the JAX
+    package.  A vlm cache counts the patch prefix."""
 
     kv_heads: int
     cache_len: int
@@ -349,7 +427,8 @@ class CacheSpec:
 
     @staticmethod
     def build(cfg: ModelConfig, seq_len: int) -> "CacheSpec":
-        check_supported(cfg)
+        if cfg.family != "encdec":
+            check_supported(cfg)
         if cfg.family == "ssm":
             return CacheSpec(0, 0, False, False)
         quant = cfg.kv_cache_dtype == "int8"
@@ -413,19 +492,21 @@ def _write_prefill_kv(cache, i: int, k, v, spec: CacheSpec, cd):
 
 def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             attn_impl: str = "auto", ssm_impl: str = "auto",
-            norm_impl: str = "auto"):
-    """Full-sequence forward.  tokens [B, S] on the params' device.  Returns
-    (last-position f32 logits [B, V], filled cache).  ``attn_impl``,
-    ``ssm_impl`` and ``norm_impl`` select attention, selective scan and
-    RMSNorm ('pallas': the hand-written kernel; 'auto': the kernel for CUDA
-    inputs, the plain version for CPU inputs)."""
+            norm_impl: str = "auto", patches=None):
+    """Full-sequence forward.  tokens [B, S] on the params' device (the vlm
+    family: and ``patches [B, P, D]``, prepended).  Returns (last-position
+    f32 logits [B, V], filled cache).  ``attn_impl``, ``ssm_impl`` and
+    ``norm_impl`` select attention, selective scan and RMSNorm ('pallas': the
+    hand-written kernel; 'auto': the kernel for CUDA inputs, the plain
+    version for CPU inputs)."""
+    check_supported(cfg)
     cd = _dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
+    x = _embed(params, tokens, cfg, patches)
     b, s, _ = x.shape
     if cfg.family != "ssm" and not spec.ring and s > spec.cache_len:
         raise ValueError(
-            f"prefill length {s} exceeds cache_len {spec.cache_len}; "
-            "build the CacheSpec with a longer max_len")
+            f"prefill length {s} (with any patch prefix) exceeds cache_len "
+            f"{spec.cache_len}; build the CacheSpec with a longer max_len")
     positions = torch.arange(s, device=x.device)
     window = cfg.sliding_window if cfg.family == "hybrid" else 0
     cache = init_cache(cfg, spec, b, device=x.device)
@@ -444,7 +525,7 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
         x = x + mix
         if cfg.family != "ssm":
-            x = _mlp(x, lp, cfg, norm_impl)
+            x, _ = _mlp(x, lp, cfg, norm_impl)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = s
     return _logits(params, hidden[:, -1:], cfg)[:, 0], cache
@@ -485,7 +566,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
         x = x + mix
         if cfg.family != "ssm":
-            x = _mlp(x, lp, cfg, norm_impl)
+            x, _ = _mlp(x, lp, cfg, norm_impl, decode=True)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = pos + 1
     return _logits(params, hidden, cfg)[:, 0], cache

@@ -94,13 +94,22 @@ def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
 
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
+        # m = b1 m + (1 - b1) g;  v = b2 v + (1 - b2) g^2;
+        # p -= lr (m_hat / (sqrt(v_hat) + eps) + wd p): the same operations,
+        # each rounded once, run in place on temporaries of this step, so a
+        # leaf holds at most three f32 temporaries beside the old and the new
+        # state (a step keeps both).
         g = grads[k].to(torch.float32) * scale
-        m32 = cfg.b1 * state.mu[k].to(torch.float32) + (1 - cfg.b1) * g
-        v32 = cfg.b2 * state.nu[k].to(torch.float32) + (1 - cfg.b2) * torch.square(g)
-        mhat = m32 / b1c
+        m32 = state.mu[k].to(torch.float32) * cfg.b1
+        m32.add_(g * (1 - cfg.b1))
+        v32 = state.nu[k].to(torch.float32) * cfg.b2
+        v32.add_(g.square_().mul_(1 - cfg.b2))
+        del g
+        upd = m32 / b1c
         vhat = v32 / b2c
+        upd.div_(vhat.sqrt_().add_(cfg.eps))
+        del vhat
         p32 = p.to(torch.float32)
-        p32 = p32 - lr * (mhat / (torch.sqrt(vhat) + cfg.eps)
-                          + cfg.weight_decay * p32)
-        new_p[k], new_m[k], new_v[k] = p32.to(p.dtype), m32.to(sdt), v32.to(sdt)
+        upd.add_(p32 * cfg.weight_decay).mul_(lr)
+        new_p[k], new_m[k], new_v[k] = (p32 - upd).to(p.dtype), m32.to(sdt), v32.to(sdt)
     return new_p, OptState(new_m, new_v, step), {"grad_norm": gnorm, "lr": lr}

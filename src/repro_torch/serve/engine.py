@@ -1,7 +1,11 @@
 """Batched serving engine: prefill + decode loop over the KV cache.
 
-The static-batch engine of the JAX package's ``serve/engine.py`` for the
-decoder-only dense, ssm and hybrid families.  Feeding prompts from the data tier
+The static-batch engine of the JAX package's ``serve/engine.py``: the
+decoder-only dense, moe, ssm and hybrid families through ``models/lm.py``,
+the encoder-decoder through ``models/encdec.py`` (``generate(...,
+source=)``).  Like the JAX engine it takes no patch embeddings, so it
+refuses the vlm family: serve that through ``lm.prefill(..., patches=)`` and
+``lm.decode_step``.  Feeding prompts from the data tier
 (``generate_from_tier``) waits for a port of ``serve/datatier.py``
 (ROADMAP.md Queue 1).
 """
@@ -12,7 +16,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.models.lm import CacheSpec
 
 __all__ = ["ServeEngine"]
@@ -22,12 +26,18 @@ class ServeEngine:
     """``attn_impl`` and ``ssm_impl`` select the prefill attention and
     selective scan, ``norm_impl`` every RMSNorm of prefill and decode
     ('pallas' is the hand-written CUDA kernel; the default 'auto' takes it
-    for CUDA inputs and raises where it refuses one).  ``device`` defaults to the card and
-    raises without one; pass ``device='cpu'`` to run on the CPU."""
+    for CUDA inputs and raises where it refuses one).  The encoder-decoder
+    has no RMSNorm and no scan.  ``device`` defaults to the card and raises
+    without one; pass ``device='cpu'`` to run on the CPU."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
                  attn_impl: str = "auto", ssm_impl: str = "auto",
                  norm_impl: str = "auto", device=None):
+        if cfg.family == "vlm":
+            raise NotImplementedError(
+                "the engine takes no patch embeddings, as the JAX package's does not: "
+                "serve the vlm family through lm.prefill(..., patches=) and "
+                "lm.decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.spec = CacheSpec.build(cfg, max_len)
@@ -37,10 +47,18 @@ class ServeEngine:
         self.params = _to_device(params, self.device)
 
     @torch.inference_mode()
-    def prefill(self, prompts):
-        """prompts [B, S] -> (f32 logits [B, V] at the last position, cache)."""
+    def prefill(self, prompts, source=None):
+        """prompts [B, S] (the encoder-decoder: and ``source [B, T, D]``
+        frame embeddings) -> (f32 logits [B, V] at the last position,
+        cache)."""
         tokens = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                  device=self.device)
+        if self.cfg.family == "encdec":
+            if source is None:
+                raise ValueError("the encoder-decoder needs source= frame embeddings")
+            source = torch.as_tensor(np.asarray(source), device=self.device)
+            return encdec.prefill(self.params, tokens, source, self.cfg, self.spec,
+                                  attn_impl=self.attn_impl)
         return lm.prefill(self.params, tokens, self.cfg, self.spec,
                           attn_impl=self.attn_impl, ssm_impl=self.ssm_impl,
                           norm_impl=self.norm_impl)
@@ -48,20 +66,23 @@ class ServeEngine:
     @torch.inference_mode()
     def step(self, cache, tokens):
         """One decode step for tokens [B] on the device; updates ``cache``."""
+        if self.cfg.family == "encdec":
+            return encdec.decode_step(self.params, cache, tokens, self.cfg, self.spec)
         return lm.decode_step(self.params, cache, tokens, self.cfg, self.spec,
                               norm_impl=self.norm_impl)
 
     @torch.inference_mode()
-    def generate(self, prompts, num_tokens: int, *, greedy: bool = True,
+    def generate(self, prompts, num_tokens: int, *, source=None, greedy: bool = True,
                  generator: torch.Generator | None = None) -> np.ndarray:
-        """prompts [B, S_prompt] int -> generated tokens [B, num_tokens].
+        """prompts [B, S_prompt] int -> generated tokens [B, num_tokens];
+        the encoder-decoder takes ``source [B, T, D]`` too.
 
         Sampling (``greedy=False``) draws from softmax(logits) with
         ``generator`` (a ``torch.Generator`` on the engine's device; seeded
         with 0 when omitted)."""
         if not greedy and generator is None:
             generator = torch.Generator(device=self.device).manual_seed(0)
-        logits, cache = self.prefill(prompts)
+        logits, cache = self.prefill(prompts, source)
         tok = torch.argmax(logits, dim=-1)
         out = []
         for _ in range(num_tokens):

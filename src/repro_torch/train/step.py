@@ -73,12 +73,16 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
             g = torch.autograd.grad(lsum, [leaves[k] for k in names], allow_unused=True,
                                     materialize_grads=True)
             for k, gk in zip(names, g):
-                gacc[k] = gacc[k] + gk.to(adt)
+                gacc[k].add_(gk.to(adt))
+            del g  # one set of gradients alive at a time, beside the accumulator
             denom = denom + tokens
             loss_sum = loss_sum + lsum.detach()
 
-        grads = {k: (g.to(torch.float32) / torch.clamp_min(denom, 1.0)).to(g.dtype)
-                 for k, g in gacc.items()}
+        # an f32 accumulator is divided in place: the same values, without a
+        # second copy of every gradient
+        scale = torch.clamp_min(denom, 1.0)
+        grads = {k: g.div_(scale) if g.dtype == torch.float32
+                 else (g.to(torch.float32) / scale).to(g.dtype) for k, g in gacc.items()}
         new_state = dict(state)
         if compress_grads:
             grads, new_state["ef"] = compression.apply_error_feedback(grads, state["ef"])

@@ -766,3 +766,73 @@ def test_serving_saves_nothing_for_the_backward(cuda):
                    lambda: rn.rms_norm(x, scale)):
             grew, outputs = allocated(fn)
             assert grew <= outputs + 1024, (grew, outputs)
+
+
+# The moe, vlm and encdec paths' shapes: K2 at hd 128 with GQA 4 (causal),
+# non-causal over a ragged 1500 keys (23 * 64 + 28: Whisper's encoder and its
+# cross-attention from a short prompt), and K1 at d = 2048, forward and
+# backward.
+NEW_ATTN_CASES = [(1, 8, 2, 300, 300, 128, True, 0), (1, 4, 4, 64, 1500, 64, False, 0),
+                  (1, 2, 2, 1500, 1500, 64, False, 0), (2, 4, 1, 190, 1500, 128, False, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kh,sq,sk,hd,causal,window", NEW_ATTN_CASES)
+def test_attention_kernels_at_the_moe_vlm_and_encdec_shapes(cuda, b, h, kh, sq, sk, hd,
+                                                            causal, window, dtype):
+    q, k, v = _inputs(b, h, kh, sq, sk, hd, dtype, cuda)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    want = ref.attention_ref(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(out.float().cpu().numpy(), want.float().cpu().numpy(),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+    do = torch.randn(q.shape, generator=torch.Generator(device=cuda).manual_seed(9),
+                     device=cuda).to(dtype)
+    got = _autograd(lambda *t: ops.flash_attention(*t, causal=causal, window=window),
+                    (q, k, v), do)
+    _grads_agree(got, ref.attention_ref_bwd(q, k, v, do, causal=causal, window=window),
+                 dtype, "attention")
+
+
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [4, 2048, 16384])
+def test_norm_kernels_at_d_2048(cuda, rows, dtype, scale_dtype):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(rows, 2048, generator=g, device=cuda).to(dtype)
+    scale = (0.1 * torch.randn(2048, generator=g, device=cuda)).to(scale_dtype)
+    out = ops.rms_norm(x, scale, eps=1e-6)
+    np.testing.assert_allclose(out.float().cpu().numpy(),
+                               ref.rms_norm_ref(x, scale, 1e-6).float().cpu().numpy(),
+                               atol=NORM_TOL[dtype], rtol=NORM_TOL[dtype])
+    dy = torch.randn(rows, 2048, generator=g, device=cuda).to(dtype)
+    got = _autograd(lambda x_, s_: ops.rms_norm(x_, s_, eps=1e-6), (x, scale), dy)
+    _grads_agree(got, ref.rms_norm_ref_bwd(x, scale, dy, 1e-6), dtype, "rms_norm d 2048")
+
+
+@pytest.mark.parametrize("case", ["prefill, pad experts", "decode, groups of 1"])
+def test_moe_layer_on_the_card_equals_its_cpu_result(cuda, case):
+    """f32, TF32 off: the router's f32 logits, the routes and the layer's
+    output and aux on the card against the same layer on the CPU."""
+    from repro_torch.models import layers
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    b, s, d, e_real, e_pad, f, k, cf, group = {
+        "prefill, pad experts": (2, 512, 256, 60, 64, 64, 4, 1.25, 256),
+        "decode, groups of 1": (4, 1, 256, 60, 64, 64, 4, 2.0, 1)}[case]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(b, s, d, generator=g)
+    weights = [torch.randn(d, e_pad, generator=g) / d ** 0.5,
+               torch.randn(e_pad, d, f, generator=g) / d ** 0.5,
+               torch.randn(e_pad, d, f, generator=g) / d ** 0.5,
+               torch.randn(e_pad, f, d, generator=g) / f ** 0.5]
+    shared = tuple(torch.randn(*sh, generator=g) / sh[0] ** 0.5
+                   for sh in ((d, 2 * f), (d, 2 * f), (2 * f, d)))
+    kw = dict(top_k=k, num_real_experts=e_real, capacity_factor=cf, group_size=group)
+    routes = [layers.route(t, weights[0].to(t.device), top_k=k, num_real_experts=e_real)[2]
+              for t in (x, x.to(cuda))]
+    assert torch.equal(routes[0], routes[1].cpu())  # the same experts first
+    want_y, want_aux = layers.moe_layer(x, *weights, shared=shared, **kw)
+    y, aux = layers.moe_layer(x.to(cuda), *(w.to(cuda) for w in weights),
+                              shared=tuple(w.to(cuda) for w in shared), **kw)
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.numpy(), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)

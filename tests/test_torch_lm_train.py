@@ -35,7 +35,7 @@ from repro_torch import convert
 from repro_torch.checkpoint import checkpoint as tckpt
 from repro_torch.configs import get_config, list_configs
 from repro_torch.launch import train as ttrain
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim import adamw as tadamw
 from repro_torch.train import step as tstep
 
@@ -127,12 +127,26 @@ def test_train_loss_and_every_gradient_match_jax(arch):
 @pytest.mark.parametrize("arch", list_configs())
 def test_arch_smoke_forward_and_grad(arch):
     """Reduced config: one forward and one gradient; finite (the counterpart
-    of the JAX package's test_models.py smoke test)."""
+    of the JAX package's test_models.py smoke test, every family: the
+    encoder-decoder through ``encdec``, vlm with patch embeddings)."""
     cfg = get_config(arch).reduced()
-    flat = lm.flat_params(lm.init_lm(cfg, seed=0, device="cpu"))
-    loss, _, grads = _port_loss_and_grads(cfg, flat, _batch(cfg, b=2, s=32, ignore=False))
+    batch = _batch(cfg, b=2, s=32, ignore=False)
+    rng = np.random.default_rng(3)
+    if cfg.family == "vlm":
+        batch["patches"] = rng.standard_normal((2, cfg.num_patches, cfg.d_model)).astype(
+            np.float32)
+    if cfg.family == "encdec":
+        batch["source"] = rng.standard_normal((2, cfg.source_len, cfg.d_model)).astype(
+            np.float32)
+    model = encdec if cfg.family == "encdec" else lm
+    init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
+    flat = lm.flat_params(init(cfg, seed=0, device="cpu"))
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in flat.items()}
+    loss, _ = model.train_loss(lm.nested_params(leaves), _torch_batch(batch), cfg)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True,
+                                materialize_grads=True)
     assert np.isfinite(float(loss.detach()))
-    for k, g in grads.items():
+    for k, g in zip(leaves, grads):
         assert g.shape == flat[k].shape and torch.isfinite(g).all(), (arch, k)
 
 
