@@ -52,6 +52,24 @@ Phases, all run in order, each of which must pass:
                with the all-plain engine while planted kernel faults must
                not, and in bf16 the kernels must drift from the f32 run no
                further than twice what the plain versions drift;
+     tier_serve — tier-fed serving: a ``StandaloneTier`` in this process
+               over the PtychoNN store of the surrogate cells (8192 samples
+               of 16 KiB, seed 0), its first 2048 ids resident (that
+               cell's buffer) and the rest read through its PFS fallback;
+               tenant 1 the serving replica (unlimited), tenant 2 a batch
+               reader at 64 rows/s, burst 16.  A wrong token must raise
+               ``TierAuthError``.  qwen2-0.5b at full width and depth through
+               the CLI, ``python -m repro_torch.launch.serve --data-tier``
+               in a child process, batch 4 from id 2046 (two hits, two PFS
+               reads): it must print ``tier served 4/4`` and launch counts
+               equal to ``expected_counts``, and its tokens must equal the
+               same engine's here; then qwen2-0.5b and hymba-1.5b in this
+               process through ``ServeEngine.generate_from_tier``, hymba's
+               main run under a tenant-2 read storm that must be shed while
+               tenant 1 never is.  Each main run's launch counts must equal
+               ``expected_counts`` and its tokens ``generate`` on the
+               store's rows mapped by ``rows_to_prompts``, exactly.  Prints a
+               ``{"tier_serve": [...]}`` line;
   5. train_small — each CNN surrogate at ``reduced()`` in f32 (TF32 off):
                five training steps through the launcher's code path on the
                card follow the same run on the CPU, in per-step loss and
@@ -105,6 +123,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -235,6 +254,18 @@ SMALL_TOL = 1e-4
 SMALL_BF16 = [("qwen2-0.5b", 4, 512), ("hymba-1.5b", 4, 1536), ("qwen2-moe-a2.7b", 4, 512),
               ("phi3.5-moe-42b-a6.6b", 4, 512), ("llava-next-mistral-7b", 4, 512)]
 SMALL_BF16_ATOL = 0.15
+
+# Tier-fed serving: (arch, batch, prompt, new tokens, run through the CLI),
+# over the PtychoNN store of the surrogate cells (8192 samples of 64x64x1
+# f32, 16 KiB each, seed 0) with its first 2048 ids resident and the batch
+# read from id 2046, across that edge.  Tenant 2 is a batch reader held to
+# 64 rows/s with a burst of 16; its storm reads 8 ids every 2 ms.
+TIER_SERVE = [("qwen2-0.5b", 4, 512, 32, True), ("hymba-1.5b", 4, 1536, 32, False)]
+TIER_SAMPLES, TIER_RESIDENT, TIER_FIRST_ID = 8192, 2048, 2046
+TIER_TOKENS = {1: "serving-replica", 2: "batch-reader"}
+TIER_BATCH_RATE, TIER_BATCH_BURST = 64.0, 16.0
+TIER_STORM_IDS, TIER_STORM_PAUSE_S = 8, 0.002
+TIER_CLI_TIMEOUT_S = 600
 
 # Surrogate training, card against CPU at reduced() in f32 with TF32 off:
 # the drift is the larger of the per-step losses' relative difference and
@@ -1182,28 +1213,11 @@ def serve_model(arch, batch, prompt, gen) -> dict:
     prefill_ms = host_ms(lambda: eng.prefill(prompts, source), repeats=3)
     ref_prefill_ms = host_ms(lambda: ref_eng.prefill(prompts, source), repeats=3)
 
-    def decode(profile=False):
-        _, cache = eng.prefill(prompts, source)
-        tok = torch.zeros(batch, dtype=torch.long, device="cuda")
-        torch.cuda.synchronize()
-        prof = profiled(cpu=False) if profile else None
-        if prof:
-            prof.__enter__()
-        t0 = time.perf_counter()
-        for _ in range(gen):
-            logits, cache = eng.step(cache, tok)
-            tok = torch.argmax(logits, dim=-1)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / gen
-        if prof:
-            prof.__exit__(None, None, None)
-            return prof
-        return ms
-
-    decode_ms = statistics.median(decode() for _ in range(3))
+    decode_ms = statistics.median(decode(eng, prompts, gen, source) for _ in range(3))
     busy = {"prefill": device_time(lambda: profiled_run(lambda: eng.prefill(prompts, source),
                                                         cpu=False), prefill_ms, 1),
-            "decode_step": device_time(lambda: decode(profile=True), decode_ms, gen)}
+            "decode_step": device_time(lambda: decode(eng, prompts, gen, source, profile=True),
+                                       decode_ms, gen)}
     for name, b in busy.items():
         log(f"[serve] {arch} {name} device busy {b['device_ms']} ms of {b['wall_ms']:.3f} "
             f"ms wall (share {b['busy_share']}); top kernels {b['top']}")
@@ -1232,6 +1246,27 @@ def serve_model(arch, batch, prompt, gen) -> dict:
     return counts
 
 
+def decode(eng, prompts, gen, source=None, profile=False):
+    """Host ms per decode step over ``gen`` steps after a prefill, from
+    token 0 (or, with ``profile``, the profiler of those steps)."""
+    _, cache = eng.prefill(prompts, source)
+    tok = torch.zeros(len(prompts), dtype=torch.long, device="cuda")
+    torch.cuda.synchronize()
+    prof = profiled(cpu=False) if profile else None
+    if prof:
+        prof.__enter__()
+    t0 = time.perf_counter()
+    for _ in range(gen):
+        logits, cache = eng.step(cache, tok)
+        tok = torch.argmax(logits, dim=-1)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / gen
+    if prof:
+        prof.__exit__(None, None, None)
+        return prof
+    return ms
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -1251,6 +1286,214 @@ def phase_serve() -> dict:
             launches[name][arch] = n
         log(f"[serve] {arch} phase {time.perf_counter() - t0:.1f}s")
     return launches
+
+
+def _tier_cli(arch, batch, prompt, gen, endpoint) -> dict:
+    """The serving CLI reading its prompts from the tier, in a child process
+    on the card: its printed served count, tokens, wall and launch counts."""
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
+           "--batch", str(batch), "--prompt-len", str(prompt), "--gen", str(gen),
+           "--data-tier", f"{endpoint[0]}:{endpoint[1]}", "--tenant", "1",
+           "--token", TIER_TOKENS[1], "--first-id", str(TIER_FIRST_ID)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, env=env, cwd=ROOT, capture_output=True, text=True,
+                         timeout=TIER_CLI_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    for line in (res.stdout + res.stderr).strip().splitlines()[-12:]:
+        log(f"[tier_serve] {arch} CLI| {line}")
+    if res.returncode != 0:
+        raise AssertionError(f"{arch}: the serving CLI exited {res.returncode}")
+    lines = res.stdout.splitlines()
+
+    def after(prefix):
+        found = [ln[len(prefix):] for ln in lines if ln.startswith(prefix)]
+        if len(found) != 1:
+            raise AssertionError(f"{arch}: the CLI printed {len(found)} {prefix!r} lines")
+        return found[0].strip()
+
+    served = after("tier served ")
+    if not served.startswith(f"{batch}/{batch} samples"):
+        raise AssertionError(f"{arch}: the CLI's tier served {served}")
+    generated = after("generated ")
+    return {"served": served, "first_sequence": json.loads(after("first sequence:")),
+            "launches": json.loads(after("kernel launches:")),
+            "generate_s": float(generated.split(" in ")[1].split("s ")[0]),
+            "process_wall_s": wall_s}
+
+
+def _storm(endpoint, stop) -> dict:
+    """Tenant 2 reading ``TIER_STORM_IDS`` random ids every
+    ``TIER_STORM_PAUSE_S`` until ``stop`` is set; returns its client stats."""
+    from repro_torch.serve.datatier import DataTierClient
+
+    rng = np.random.default_rng(2)
+    out = {}
+    client = DataTierClient({0: endpoint}, tenant=2, token=TIER_TOKENS[2], timeout_s=10.0,
+                            shed_wait_s=0.001, max_shed_retries=0)
+    try:
+        while not stop.is_set():
+            client.read(rng.integers(0, TIER_SAMPLES, TIER_STORM_IDS))
+            time.sleep(TIER_STORM_PAUSE_S)
+    finally:
+        out.update(client.stats())
+        client.close()
+    return out
+
+
+def tier_model(tier, store, arch, batch, prompt, gen, cli, card) -> tuple[dict, dict]:
+    """One model served from the tier at full width and depth; returns its
+    ``tier_serve`` row and {path: main-run launch counts}."""
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.datatier import DataTierClient, rows_to_prompts
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = get_config(arch)
+    want = expected_counts(cfg, gen)
+    kernels = ("flash_attention", "selective_scan", "rms_norm")
+    ids = np.arange(TIER_FIRST_ID, TIER_FIRST_ID + batch, dtype=np.int64)
+    launches = {}
+    before = tier.stats()["per_tenant"]
+    cli_run = None
+    if cli:
+        cli_run = _tier_cli(arch, batch, prompt, gen, tier.endpoint)
+        launches[f"{arch} tier CLI"] = cli_run["launches"]
+        if any(cli_run["launches"][k] != want[k] for k in kernels):
+            raise AssertionError(f"{arch}: CLI launches {cli_run['launches']}, want {want}")
+        after_cli = tier.stats()["per_tenant"]["1"]
+        if after_cli["hits"] - before["1"]["hits"] < 2 or \
+                after_cli["pfs_fallbacks"] - before["1"]["pfs_fallbacks"] < 2:
+            raise AssertionError(f"{arch}: the CLI's read took {after_cli}, want >= 2 hits "
+                                 f"and >= 2 PFS fallbacks")
+        log(f"[tier_serve] {arch} CLI served {cli_run['served']}; launches "
+            f"{cli_run['launches']}; generate {cli_run['generate_s']:.2f} s; process "
+            f"{cli_run['process_wall_s']:.1f} s")
+
+    # The same engine the CLI builds: random weights from seed 0, defaults.
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    eng = ServeEngine(cfg, params, max_len=prompt + gen + 1, device="cuda")
+    client = DataTierClient({0: tier.endpoint}, tenant=1, token=TIER_TOKENS[1],
+                            timeout_s=10.0)
+    stop = threading.Event()
+    storm_stats = {}
+    storm = None
+    try:
+        read_ms = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows, ok = client.read(ids)
+            read_ms.append((time.perf_counter() - t0) * 1e3)
+        if not ok.all() or rows.tobytes() != store.read_scattered(ids).tobytes():
+            raise AssertionError(f"{arch}: the tier's rows differ from the store's")
+        if not cli:  # the main run under tenant 2's storm
+            storm = threading.Thread(target=lambda: storm_stats.update(
+                _storm(tier.endpoint, stop)), name="tenant-2-storm")
+            storm.start()
+            time.sleep(0.2)
+        # The main path: counts set to 0 just before, read just after.
+        reset_counts()
+        t0 = time.perf_counter()
+        out, served = eng.generate_from_tier(client, ids, gen, prompt_len=prompt)
+        gen_s = time.perf_counter() - t0
+        counts = read_counts()
+        stop.set()
+        if storm is not None:
+            storm.join(timeout=60.0)
+        launches[f"{arch} tier"] = counts
+        log(f"[tier_serve] {arch} generate_from_tier {out.shape} in {gen_s * 1e3:.1f} ms"
+            f"{' under the tenant-2 storm' if storm else ''}; served {served.tolist()}; "
+            f"launches {counts} (want {want})")
+        if any(counts[k] != want[k] for k in counts):
+            raise AssertionError(f"{arch}: launches {counts}, want {want}")
+        if not served.all():
+            raise AssertionError(f"{arch}: the tier served {served.tolist()}")
+        prompts = rows_to_prompts(store.read_scattered(ids), prompt, cfg.vocab_size)
+        direct = eng.generate(prompts, gen)
+        if not np.array_equal(out, direct):
+            raise AssertionError(f"{arch}: tier-fed tokens differ from direct-prompt tokens "
+                                 f"in {(out != direct).sum()} of {out.size}")
+        if cli_run and out[0][:16].tolist() != cli_run["first_sequence"]:
+            raise AssertionError(f"{arch}: the CLI's tokens {cli_run['first_sequence']} differ "
+                                 f"from this process's {out[0][:16].tolist()}")
+        prefill_ms = host_ms(lambda: eng.prefill(prompts), repeats=3)
+        decode_ms = statistics.median(decode(eng, prompts, gen) for _ in range(3))
+    finally:
+        stop.set()
+        if storm is not None:
+            storm.join(timeout=60.0)
+        client.close()
+    stats = tier.stats()
+    per = stats["per_tenant"]
+    row = {
+        "arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt": prompt,
+        "gen": gen, "first_id": int(ids[0]), "resident_ids": TIER_RESIDENT,
+        "cli": cli_run, "read_ms_median_of_5": statistics.median(read_ms),
+        "read_ms": read_ms, "rows_served": client.stats()["rows_served"],
+        "rows_unserved": client.stats()["rows_unserved"],
+        "tenant_hits": stats["tenant_hits"],
+        "tenant_pfs_fallbacks": stats["tenant_pfs_fallbacks"],
+        "tenant_sheds": stats["tenant_sheds"], "per_tenant": per,
+        "storm_client": storm_stats or None,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "generate_ms": gen_s * 1e3, "launches": counts, "card": card,
+    }
+    log("[tier_serve] " + json.dumps(row))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, launches
+
+
+def phase_tier_serve(card: str) -> tuple[list, dict]:
+    """Returns the ``tier_serve`` rows and {kernel: {path: launches}}."""
+    import tempfile
+
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.launch import train_surrogate
+    from repro_torch.serve.datatier import (DataTierClient, ServeTierConfig,
+                                            StandaloneTier, TenantConfig, TierAuthError)
+
+    config = ServeTierConfig(tenants=(
+        TenantConfig(1, TIER_TOKENS[1]),
+        TenantConfig(2, TIER_TOKENS[2], rate=TIER_BATCH_RATE, burst=TIER_BATCH_BURST)))
+    rows, launches = [], {name: {} for name in counters()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tier_") as tmp:
+        t0 = time.perf_counter()
+        store = train_surrogate.make_store(SURROGATES["ptychonn"], f"{tmp}/ptychonn.bin",
+                                           "binary", TIER_SAMPLES)
+        try:
+            with StandaloneTier(store, config,
+                                resident_ids=np.arange(TIER_RESIDENT)) as tier:
+                log(f"[tier_serve] tier on {tier.endpoint}: {TIER_SAMPLES} samples of "
+                    f"{store.sample_bytes} B, {TIER_RESIDENT} resident; up in "
+                    f"{time.perf_counter() - t0:.1f}s")
+                bad = DataTierClient({0: tier.endpoint}, tenant=1, token="not-the-token",
+                                     timeout_s=10.0)
+                try:
+                    bad.warmup()
+                except TierAuthError as e:
+                    log(f"[tier_serve] a wrong token is refused: {e}")
+                else:
+                    raise AssertionError("the tier accepted a wrong token")
+                finally:
+                    bad.close()
+                for arch, batch, prompt, gen, cli in TIER_SERVE:
+                    t1 = time.perf_counter()
+                    row, by_path = tier_model(tier, store, arch, batch, prompt, gen, cli, card)
+                    rows.append(row)
+                    for path, counts in by_path.items():
+                        for name, n in counts.items():
+                            launches[name][path] = n
+                    log(f"[tier_serve] {arch} {time.perf_counter() - t1:.1f}s")
+                per = tier.stats()["per_tenant"]
+        finally:
+            store.close()
+    if per["1"]["sheds"] != 0 or per["2"]["sheds"] == 0:
+        raise AssertionError(f"tenant sheds {per}: tenant 2 must be shed, tenant 1 never")
+    return rows, launches
 
 
 def time_calls(calls: dict, **kw) -> dict:
@@ -2264,6 +2507,10 @@ def main() -> int:
         done("lm_small")
         launches = phase_serve()
         done("serve")
+        tier_rows, tier_launches = phase_tier_serve(card)
+        for name, by_path in tier_launches.items():
+            launches[name].update(by_path)
+        done("tier_serve")
         phase_train_small()
         done("train_small")
         train_rows = phase_train()
@@ -2280,6 +2527,7 @@ def main() -> int:
         return 1
     print(json.dumps({"train": train_rows}), flush=True)
     print(json.dumps({"lm_train": lm_rows}), flush=True)
+    print(json.dumps({"tier_serve": tier_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

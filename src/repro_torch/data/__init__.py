@@ -15,9 +15,8 @@ or, with the plan made explicit (precompute once, execute many)::
     schedule = plan(spec)              # -> repro_torch.core.plan.Schedule artifact
     pipeline = execute(spec, schedule)
 
-Own copy of ``repro.data`` for the in-process path (ROADMAP.md Queue 1
-slice 5): streaming specs and the socket peer transport raise
-:class:`NotImplementedError`.
+Own copy of ``repro.data``: streaming specs raise
+:class:`NotImplementedError` (ROADMAP.md Queue 1 slice 6).
 """
 from repro_torch.core.planners import PLANNERS, STRATEGIES, PlanCache
 from repro_torch.data.backends import (
@@ -36,6 +35,7 @@ from repro_torch.data.loaders import (
     update_batch_digest,
 )
 from repro_torch.data.peer import (
+    AddressBookError,
     PeerExchange,
     SharedViewTransport,
     SocketTransport,
@@ -52,6 +52,7 @@ from repro_torch.data.prefetch import PrefetchExecutor
 from repro_torch.data.storage import ChunkStore, create_synthetic_store
 
 __all__ = [
+    "AddressBookError",
     "ChunkStore",
     "DatasetSpec",
     "LoaderSpec",

@@ -189,6 +189,11 @@ class _DataMirror:
         self.ids = np.empty(0, np.int64)      # sorted
         self._slots = np.empty(0, np.int64)   # parallel to ids
         self._free = list(range(self.capacity - 1, -1, -1))
+        #: optional list capturing ``(ids, rows)`` of everything evicted —
+        #: the BufferServer's window-skew guard (DESIGN.md §11) binds it
+        #: around a step's delta replay so peers still inside the skew
+        #: window can be served rows this step just evicted.
+        self.evict_sink: list | None = None
 
     def lookup(self, want: np.ndarray) -> np.ndarray:
         """Arena slot per wanted id, -1 where absent."""
@@ -207,6 +212,12 @@ class _DataMirror:
         if ids.size == 0 or self.ids.size == 0:
             return
         keep = ~np.isin(self.ids, ids, assume_unique=True)
+        if self.evict_sink is not None and self._data is not None:
+            gone = ~keep
+            if gone.any():
+                self.evict_sink.append(
+                    (self.ids[gone].copy(), self._data[self._slots[gone]].copy())
+                )
         self._free.extend(int(s) for s in self._slots[~keep].tolist())
         self.ids = self.ids[keep]
         self._slots = self._slots[keep]

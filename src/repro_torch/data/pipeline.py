@@ -32,9 +32,11 @@ When the spec names a ``path``, the backend is opened (or, for
 :mod:`repro_torch.data.backends`; a pre-opened ``store`` short-circuits that and
 is used as-is (``path`` and ``store`` are mutually exclusive on the spec).
 
-This copy covers the in-process path.  Streaming specs (``loader="stream"``,
-:class:`StreamSpec`) and the socket peer transport (``transport="socket"``)
-raise :class:`NotImplementedError`: ROADMAP.md Queue 1 slice 6 ports them.
+Streaming specs (``loader="stream"``, :class:`StreamSpec`) raise
+:class:`NotImplementedError`: ROADMAP.md Queue 1 slice 6 ports them.  A
+``transport="socket"`` spec executes against a live
+:class:`~repro_torch.data.peer.SocketTransport` passed to :func:`execute`;
+the multi-process launcher that wires one per rank is not ported yet.
 """
 from __future__ import annotations
 
@@ -52,10 +54,6 @@ from repro_torch.data.backends.base import backend_names, create_store, open_sto
 STREAM_STRATEGY = "stream"
 _STREAM_NOT_PORTED = (
     "streaming ingestion (loader='stream', StreamSpec) is not ported yet: "
-    "ROADMAP.md Queue 1 slice 6"
-)
-_SOCKET_NOT_PORTED = (
-    "the socket peer transport (transport='socket') is not ported yet: "
     "ROADMAP.md Queue 1 slice 6"
 )
 
@@ -113,8 +111,10 @@ class LoaderSpec:
     #: peer-vs-PFS pricing override; derived from the store when None.
     peer_cost: PeerCostModel | None = None
     #: how planned peer fetches move: ``"shared"`` (in-process buffer
-    #: mirrors).  ``"socket"`` (per-node buffer servers over TCP) is not
-    #: ported yet and raises :class:`NotImplementedError`.
+    #: mirrors) or ``"socket"`` (real per-node buffer servers over TCP;
+    #: such specs execute against a live
+    #: :class:`~repro_torch.data.peer.SocketTransport` passed to
+    #: :func:`execute`).
     transport: str = "shared"
     #: scheduler overrides (solar loader only); derived from the fields
     #: above when None.
@@ -139,11 +139,9 @@ class LoaderSpec:
 
     def validate(self) -> "LoaderSpec":
         """Raise one ``ValueError`` naming every inconsistency in the spec
-        (``NotImplementedError`` for the streaming and socket paths)."""
+        (``NotImplementedError`` for the streaming path)."""
         if self.loader == STREAM_STRATEGY or self.stream is not None:
             raise NotImplementedError(_STREAM_NOT_PORTED)
-        if self.transport == "socket":
-            raise NotImplementedError(_SOCKET_NOT_PORTED)
         errs = []
         if self.loader not in PLANNERS:
             errs.append(
@@ -170,10 +168,10 @@ class LoaderSpec:
             errs.append(f"prefetch_depth must be >= 0, got {self.prefetch_depth}")
         if int(self.num_workers) <= 0:
             errs.append(f"num_workers must be positive, got {self.num_workers}")
-        if self.transport != "shared":
+        if self.transport not in ("shared", "socket"):
             errs.append(
                 f"unknown transport {self.transport!r}; have 'shared' "
-                "(in-process mirrors)"
+                "(in-process mirrors) and 'socket' (per-node buffer servers)"
             )
         if self.plan_cache is not None and self.plan_path is not None:
             errs.append(
@@ -387,7 +385,8 @@ def plan(
     return planner.plan(num_samples, spec.num_epochs)
 
 
-def execute(spec: LoaderSpec, schedule: Schedule, *, store=None):
+def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
+            peer_transport=None):
     """Stand up the runtime half: replay ``schedule`` against the spec's store.
 
     Returns a :class:`~repro_torch.data.loaders.ScheduleExecutor`, wrapped in a
@@ -398,12 +397,24 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None):
     store is reachable as ``pipeline.store``; closing it is the caller's job
     (executors never own their store — several pipelines may share one).
 
+    ``peer_transport`` injects a live :class:`~repro_torch.data.peer.PeerTransport`
+    (a rank's :class:`~repro_torch.data.peer.SocketTransport`); specs asking
+    for ``transport="socket"`` *require* it.
+
     The schedule must match the spec: strategy, geometry, epoch count, and —
     when the schedule records one — the planner's config hash.
     """
     from repro_torch.data.loaders import ScheduleExecutor
 
     spec = _resolve_store(spec, store).validate()
+    if spec.transport == "socket" and peer_transport is None:
+        raise ValueError(
+            "transport='socket' needs a live peer transport: pass "
+            "peer_transport=SocketTransport(...) over running BufferServers "
+            "(the multi-process launcher that wires one per rank, "
+            "run_distributed, is not ported yet: ROADMAP.md Queue 1 slice 6); "
+            "use transport='shared' for in-process execution"
+        )
     opened_here = spec.store is None
     st = spec.store if spec.store is not None else build_store(spec)
     try:
@@ -417,6 +428,7 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None):
             solar_config=(
                 planner.config if isinstance(planner, SolarPlanner) else None
             ),
+            peer_transport=peer_transport,
         )
     except BaseException:
         if opened_here:  # never leak a handle the caller cannot reach

@@ -12,7 +12,9 @@ recording is lock-free and allocation-free: a full ring wraps and overwrites
 the oldest rows (the count of overwritten rows is reported as ``dropped``).
 
 Span *kinds* are interned strings.  The port's sites are the chunk reads of
-the storage backends, the prefetch queue waits, peer gathers, and the
+the storage backends, the prefetch queue waits, peer gathers and socket
+peer fetches (retries and breaker transitions as instants), the buffer
+server's fetch, skew-park, tenant-yield and shed, fault firings, and the
 trainer's make-batch and compute sections; each stamps two free integer
 payload fields ``a``/``b`` and the tracer's *current step* (set by the
 trainer via :meth:`Tracer.set_step`).
@@ -69,7 +71,15 @@ def kind_names() -> list[str]:
 # -- well-known span kinds (the §13 names the port records) -----------------
 CHUNK_READ = kind_id("chunk.read")              # backend _pread; a=samples
 PREFETCH_QWAIT = kind_id("prefetch.qwait")      # consumer blocked on the queue
+PEER_FETCH = kind_id("peer.fetch")              # one transport.fetch; a=source
+PEER_RETRY = kind_id("peer.retry")              # instant; a=source, b=attempt
+PEER_BREAKER_OPEN = kind_id("peer.breaker_open")    # instant; a=source
+PEER_BREAKER_SKIP = kind_id("peer.breaker_skip")    # instant; a=source
 PEER_GATHER = kind_id("peer.gather")            # one PeerExchange.gather; a=n
+SERVE_FETCH = kind_id("serve.fetch")            # BufferServer fetch; a=node
+SERVE_SKEW_PARK = kind_id("serve.skew_park")    # §11 bounded lead wait; a=node
+SERVE_TENANT_YIELD = kind_id("serve.tenant_yield")  # §12 priority wait
+SERVE_SHED = kind_id("serve.shed")              # instant; one shed tenant read
 TRAIN_MAKE_BATCH = kind_id("train.make_batch")  # StepBatch -> device batch
 TRAIN_COMPUTE = kind_id("train.compute")        # step + sync on its loss
 
@@ -125,6 +135,10 @@ class Tracer:
         ring.buf[ring.n % self.capacity] = (t0, t1, kind, self.step, a, b)
         ring.n += 1
 
+    def instant(self, kind: int, a: int = 0, b: int = 0) -> None:
+        now = time.perf_counter()
+        self.rec(kind, now, now, a, b)
+
     # -- collection ------------------------------------------------------------
 
     def records(self) -> tuple[np.ndarray, list[str], int]:
@@ -167,6 +181,8 @@ class _NullTracer:
             a: int = 0, b: int = 0) -> None:
         pass
 
+    def instant(self, kind: int, a: int = 0, b: int = 0) -> None:
+        pass
 
 
 _NULL = _NullTracer()

@@ -5,9 +5,8 @@ decoder-only dense, moe, ssm and hybrid families through ``models/lm.py``,
 the encoder-decoder through ``models/encdec.py`` (``generate(...,
 source=)``).  Like the JAX engine it takes no patch embeddings, so it
 refuses the vlm family: serve that through ``lm.prefill(..., patches=)`` and
-``lm.decode_step``.  Feeding prompts from the data tier
-(``generate_from_tier``) waits for a port of ``serve/datatier.py``
-(ROADMAP.md Queue 1).
+``lm.decode_step``.  ``generate_from_tier`` feeds prompts from the
+multi-tenant data tier (:mod:`repro_torch.serve.datatier`).
 """
 from __future__ import annotations
 
@@ -94,6 +93,31 @@ class ServeEngine:
                 probs = torch.softmax(logits, dim=-1)
                 tok = torch.multinomial(probs, 1, generator=generator)[:, 0]
         return torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+
+    def generate_from_tier(self, client, sample_ids, num_tokens: int, *,
+                           prompt_len: int, greedy: bool = True, rng=None):
+        """Pull ``sample_ids`` through a data-tier client and generate.
+
+        ``client`` is a :class:`~repro_torch.serve.datatier.DataTierClient`.
+        Rows are mapped to prompts on the host
+        (:func:`~repro_torch.serve.datatier.rows_to_prompts`) and generated
+        on the engine's device.  Rows the tier cannot serve are dropped from
+        the batch; returns ``(tokens, served_mask)`` so callers can retry or
+        backfill the unserved ids.  Raises when the tier serves nothing at
+        all.  ``rng`` is the sampling ``torch.Generator`` (``generate``'s
+        ``generator``).
+        """
+        from repro_torch.serve.datatier import rows_to_prompts
+
+        ids = np.asarray(sample_ids, np.int64)
+        rows, ok = client.read(ids)
+        if not ok.any():
+            raise RuntimeError(
+                f"data tier served none of the {ids.size} requested samples"
+            )
+        prompts = rows_to_prompts(rows[ok], prompt_len, self.cfg.vocab_size)
+        return self.generate(prompts, num_tokens, greedy=greedy,
+                             generator=rng), ok
 
 
 def _to_device(tree, device):

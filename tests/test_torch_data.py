@@ -4,7 +4,7 @@ hash), plan artifacts and stores written by one package load in the other,
 and replaying a plan gives the same batch stream (digest over ids, hit
 masks and bytes) and the same loader accounting, with and without prefetch,
 on the binary and memory backends, the peer tier included.  The streaming
-and socket paths, not ported yet, raise."""
+path, not ported yet, raises; a socket spec needs a live transport."""
 import numpy as np
 import pytest
 import torch
@@ -168,16 +168,29 @@ def test_store_reads_back_bit_for_bit_in_the_other_package(tmp_path, backend, wr
 
 
 def test_streaming_and_socket_paths_raise_not_implemented(stores):
+    """The streaming path, not ported yet, raises (the socket path's own
+    test follows)."""
     _, t_store = stores["binary"]
     geo = GEOMETRIES["A"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdata.LoaderSpec(loader="stream", store=t_store, **geo).validate()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.build_pipeline(tdata.LoaderSpec(loader="solar", store=t_store,
-                                              transport="socket", **geo))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdata.pipeline.StreamSpec()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.SocketTransport({1: ("localhost", 1)}, self_node=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdata.make_planner(tdata.LoaderSpec(loader="stream", store=t_store, **geo))
+
+
+def test_socket_path_needs_a_live_transport_as_in_the_jax_package(stores):
+    """``transport="socket"`` without a live transport raises ``ValueError``
+    in both packages, and the port's ``SocketTransport`` constructs."""
+    r_store, t_store = stores["binary"]
+    geo = GEOMETRIES["A"]
+    for pkg, store in ((rdata, r_store), (tdata, t_store)):
+        spec = pkg.LoaderSpec(loader="solar", store=store, transport="socket", **geo)
+        with pytest.raises(ValueError, match="live peer transport"):
+            pkg.build_pipeline(spec)
+        with pytest.raises(ValueError, match="live peer transport"):
+            pkg.execute(spec, pkg.plan(spec))
+    t = tdata.SocketTransport({1: ("localhost", 1)}, self_node=0)
+    assert t.endpoints == {1: ("localhost", 1)} and t.stats()["retries"] == 0
+    t.close()

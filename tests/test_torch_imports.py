@@ -51,7 +51,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.llama3_405b", "repro_torch.models.encdec",
                  "repro_torch.configs.qwen2_moe_a2_7b", "repro_torch.configs.phi3_5_moe",
                  "repro_torch.configs.llava_next_mistral_7b",
-                 "repro_torch.configs.whisper_medium"):
+                 "repro_torch.configs.whisper_medium", "repro_torch.runtime",
+                 "repro_torch.runtime.wire", "repro_torch.runtime.faults",
+                 "repro_torch.runtime.server", "repro_torch.serve.datatier"):
         assert name in report["imported"]
 
 
