@@ -70,6 +70,21 @@ Phases, all run in order, each of which must pass:
                ``expected_counts`` and its tokens ``generate`` on the
                store's rows mapped by ``rows_to_prompts``, exactly.  Prints a
                ``{"tier_serve": [...]}`` line;
+     dist_tier_serve — the same store and tenants with the tier held by
+               four launcher ranks (``run_distributed(serve_tier=)`` in a
+               thread of this process, the ranks replaying a SOLAR plan with
+               the peer tier on): hymba-1.5b at full width and depth serves
+               batch 4 from id 2046 through ``generate_from_tier`` twice,
+               alone and while tenant 2 storms from a process of its own
+               (``repro_torch.serve.tenant_load``), then ``generate`` once
+               with the ranks gone (no loader).  The ranks' digests must
+               equal ``in_process_digests``, with no stale refusals and no
+               peer fallbacks; the rows the store's; the launch counts
+               ``expected_counts``; the tokens the direct-prompt run's;
+               tenant 2 shed and tenant 1 never; the run still live when the
+               stormed main run ends; the ranks' traces must pass
+               ``repro_torch.obs.report.check``.  Prints a
+               ``{"dist_tier_serve": [...]}`` line;
   5. train_small — each CNN surrogate at ``reduced()`` in f32 (TF32 off):
                five training steps through the launcher's code path on the
                card follow the same run on the CPU, in per-step loss and
@@ -266,6 +281,20 @@ TIER_TOKENS = {1: "serving-replica", 2: "batch-reader"}
 TIER_BATCH_RATE, TIER_BATCH_BURST = 64.0, 16.0
 TIER_STORM_IDS, TIER_STORM_PAUSE_S = 8, 0.002
 TIER_CLI_TIMEOUT_S = 600
+
+# The same store and tenants with the tier held by launcher ranks (the JAX
+# package's layout, DESIGN.md §12): 4 rank processes replay a SOLAR plan over
+# the store (local batch 16, buffer 2048, peer tier on, capacity factor 1.0,
+# prefetch depth 1) and serve tenants from their live buffers; hymba-1.5b
+# serves batch 4 from id 2046 through them, once alone and once while
+# tenant 2 storms from a process of its own.  The run must still be live
+# when the stormed main run ends: the ranks took ~3.5 ms a step on the H100
+# machine (16 epochs of 128 steps were over within ~8 s of the tier coming
+# up), so 64 epochs last ~30 s, and the serving side needs ~11 s of it.
+DIST_TIER = ("hymba-1.5b", 4, 1536, 32)
+DIST_TIER_NODES, DIST_TIER_LOCAL_BATCH, DIST_TIER_BUFFER = 4, 16, 2048
+DIST_TIER_EPOCHS, DIST_TIER_DEPTH = 64, 1
+DIST_TIER_TIMEOUT_S = 600
 
 # Surrogate training, card against CPU at reduced() in f32 with TF32 off:
 # the drift is the larger of the per-step losses' relative difference and
@@ -1496,6 +1525,237 @@ def phase_tier_serve(card: str) -> tuple[list, dict]:
     return rows, launches
 
 
+def _start_storm(endpoints) -> subprocess.Popen:
+    """Tenant 2's read storm in a process of its own
+    (``repro_torch.serve.tenant_load``, numpy-only), attached on return."""
+    book = ",".join(f"{n}={h}:{p}" for n, (h, p) in sorted(endpoints.items()))
+    cmd = [sys.executable, "-m", "repro_torch.serve.tenant_load", "--endpoints", book,
+           "--tenant", "2", "--token", TIER_TOKENS[2], "--num-samples", str(TIER_SAMPLES),
+           "--ids", str(TIER_STORM_IDS), "--pause", str(TIER_STORM_PAUSE_S), "--seed", "2"]
+    proc = subprocess.Popen(cmd, env=dict(os.environ, PYTHONPATH=str(ROOT / "src")), cwd=ROOT,
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+    line = proc.stdout.readline()
+    if not line.strip() or json.loads(line) != {"ready": True}:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"the storm process did not attach: {line!r}")
+    return proc
+
+
+def _stop_storm(proc: subprocess.Popen) -> dict:
+    """Close the storm's stdin; returns its client stats."""
+    out, _ = proc.communicate(timeout=60)
+    if proc.returncode != 0:
+        raise AssertionError(f"the storm process exited {proc.returncode}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _dist_tier_spec(path):
+    from repro_torch.core.scheduler import SolarConfig
+    from repro_torch.data import LoaderSpec
+
+    return LoaderSpec(
+        loader="solar", backend="binary", path=path, num_nodes=DIST_TIER_NODES,
+        local_batch=DIST_TIER_LOCAL_BATCH, num_epochs=DIST_TIER_EPOCHS,
+        buffer_size=DIST_TIER_BUFFER, seed=0, collect_data=True, peer_fetch=True,
+        transport="socket", prefetch_depth=DIST_TIER_DEPTH,
+        solar=SolarConfig(num_nodes=DIST_TIER_NODES, local_batch=DIST_TIER_LOCAL_BATCH,
+                          buffer_size=DIST_TIER_BUFFER, seed=0, capacity_factor=1.0,
+                          enable_peer=True))
+
+
+def _dist_main_runs(eng, endpoints, ids, direct, store_rows, want, runner) -> dict:
+    """The reads and the two main runs (alone, then under tenant 2's storm)
+    against the ranks' tier; returns their readings and launch counts."""
+    from repro_torch.serve.datatier import DataTierClient
+
+    arch, _, prompt, gen = DIST_TIER
+    out_row = {"read_ms": [], "launches": {}}
+    client = DataTierClient(endpoints, tenant=1, token=TIER_TOKENS[1], timeout_s=10.0)
+    storm = None
+    try:
+        for _ in range(5):
+            t0 = time.perf_counter()
+            rows, ok = client.read(ids)
+            out_row["read_ms"].append((time.perf_counter() - t0) * 1e3)
+        if not ok.all() or rows.tobytes() != store_rows.tobytes():
+            raise AssertionError("the ranks' tier rows differ from the store's")
+        for label in ("alone", "storm"):
+            if label == "storm":
+                storm = _start_storm(endpoints)
+                time.sleep(0.2)
+            # The main path: counts set to 0 just before, read just after.
+            reset_counts()
+            t0 = time.perf_counter()
+            out, served = eng.generate_from_tier(client, ids, gen, prompt_len=prompt)
+            out_row[f"generate_ms_{label}"] = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            live = runner.is_alive()
+            out_row["launches"][f"{arch} dist tier {label}"] = counts
+            log(f"[dist_tier_serve] {arch} generate_from_tier {label}: "
+                f"{out_row[f'generate_ms_{label}']:.1f} ms; served {served.tolist()}; "
+                f"launches {counts}; run live {live}")
+            if any(counts[k] != want[k] for k in counts):
+                raise AssertionError(f"{arch}: launches {counts}, want {want}")
+            if not served.all():
+                raise AssertionError(f"{arch}: the ranks' tier served {served.tolist()}")
+            if not np.array_equal(out, direct):
+                raise AssertionError(f"{arch}: tier-fed tokens differ from direct-prompt "
+                                     f"tokens in {(out != direct).sum()} of {out.size}")
+            if not live:
+                raise AssertionError(f"the distributed run ended before the {label} main run "
+                                     f"did: raise DIST_TIER_EPOCHS ({DIST_TIER_EPOCHS})")
+        out_row["storm_client"] = _stop_storm(storm)
+        storm = None
+        out_row["tenant_1_client"] = client.stats()
+    finally:
+        client.close()
+        if storm is not None:
+            storm.kill()
+            storm.communicate()
+    return out_row
+
+
+def phase_dist_tier_serve(card: str) -> tuple[list, dict]:
+    """hymba-1.5b served from a data tier held by launcher ranks; returns the
+    ``dist_tier_serve`` rows and {kernel: {path: launches}}.
+
+    ``run_distributed`` runs in a thread of this process and its ranks are
+    spawned processes: each imports this script again (as ``__mp_main__``:
+    ~2-3 s and ~0.2 GB for its torch import, no CUDA context), then the
+    numpy-only loader.  ``on_tier_ready`` only hands the endpoints over, so
+    the launcher's poll loop never blocks; serving runs on this thread."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.data import plan
+    from repro_torch.launch import train_surrogate
+    from repro_torch.models import lm
+    from repro_torch.obs import report as obs_report
+    from repro_torch.runtime import in_process_digests, run_distributed
+    from repro_torch.serve.datatier import ServeTierConfig, TenantConfig, rows_to_prompts
+    from repro_torch.serve.engine import ServeEngine
+
+    arch, batch, prompt, gen = DIST_TIER
+    cfg = get_config(arch)
+    want = expected_counts(cfg, gen)
+    ids = np.arange(TIER_FIRST_ID, TIER_FIRST_ID + batch, dtype=np.int64)
+    config = ServeTierConfig(tenants=(
+        TenantConfig(1, TIER_TOKENS[1]),
+        TenantConfig(2, TIER_TOKENS[2], rate=TIER_BATCH_RATE, burst=TIER_BATCH_BURST)))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_tier_") as tmp:
+        t0 = time.perf_counter()
+        store = train_surrogate.make_store(SURROGATES["ptychonn"], f"{tmp}/ptychonn.bin",
+                                           "binary", TIER_SAMPLES)
+        try:
+            store_rows = store.read_scattered(ids)
+        finally:
+            store.close()  # the ranks reopen it
+        spec = _dist_tier_spec(f"{tmp}/ptychonn.bin")
+        schedule = plan(spec)
+        log(f"[dist_tier_serve] store and plan ({schedule.num_steps} steps) in "
+            f"{time.perf_counter() - t0:.1f}s")
+        # The engine the CLI builds, warmed by the direct-prompt run that the
+        # tier-fed runs must equal.
+        params = lm.init_lm(cfg, seed=0, device="cuda")
+        eng = ServeEngine(cfg, params, max_len=prompt + gen + 1, device="cuda")
+        prompts = rows_to_prompts(store_rows, prompt, cfg.vocab_size)
+        direct = eng.generate(prompts, gen)
+
+        ready, run = threading.Event(), {}
+
+        def on_tier_ready(info):  # called from the launcher's poll loop
+            run["info"] = info
+            ready.set()
+
+        def launch():
+            try:
+                run["report"] = run_distributed(
+                    spec, schedule=schedule, timeout_s=DIST_TIER_TIMEOUT_S, serve_tier=config,
+                    on_tier_ready=on_tier_ready, trace_dir=f"{tmp}/traces")
+            except BaseException as e:  # re-raised on this thread
+                run["error"] = e
+            finally:
+                ready.set()
+
+        runner = threading.Thread(target=launch, name="run-distributed")
+        t_run = time.perf_counter()
+        runner.start()
+        try:
+            if not ready.wait(120.0) or "info" not in run:
+                raise AssertionError(f"the ranks' tier never came up: {run.get('error')!r}")
+            log(f"[dist_tier_serve] tier up on {len(run['info']['endpoints'])} ranks in "
+                f"{time.perf_counter() - t_run:.1f}s")
+            main = _dist_main_runs(eng, run["info"]["endpoints"], ids, direct, store_rows,
+                                   want, runner)
+        finally:
+            runner.join(timeout=DIST_TIER_TIMEOUT_S)
+        run_s = time.perf_counter() - t_run
+        if "error" in run:
+            raise run["error"]
+        report = run["report"]
+        t0 = time.perf_counter()
+        ref = in_process_digests(spec, schedule=schedule)
+        ref_s = time.perf_counter() - t0
+        summ = report.summary()
+        if not report.ok or report.digests() != ref:
+            raise AssertionError(f"the ranks' digests differ from in_process_digests "
+                                 f"(dead ranks {report.dead})")
+        if summ["stale_refusals"] or summ["peer_fallbacks"]:
+            raise AssertionError(f"the storm reached the loader: {summ['stale_refusals']} "
+                                 f"stale refusals, {summ['peer_fallbacks']} peer fallbacks")
+        per = {}
+        for r in report.ranks:
+            for tid, c in r.tenants.get("per_tenant", {}).items():
+                row = per.setdefault(tid, dict.fromkeys(("hits", "peer_reads",
+                                                         "pfs_fallbacks", "sheds"), 0))
+                for k in row:
+                    row[k] += int(c.get(k, 0))
+        if per["1"]["sheds"] != 0 or per["2"]["sheds"] == 0:
+            raise AssertionError(f"tenant sheds {per}: tenant 2 must be shed, tenant 1 never")
+        trace_failures = obs_report.check(f"{tmp}/traces")
+        if trace_failures:
+            raise AssertionError(f"the ranks' traces fail the report's check: {trace_failures}")
+        trace = obs_report.analyze(f"{tmp}/traces")["cluster"]
+    # The same generate with no loader running: what the ranks' load costs.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.generate(prompts, gen)
+    idle_ms = (time.perf_counter() - t0) * 1e3
+    prefill_ms = host_ms(lambda: eng.prefill(prompts), repeats=3)
+    decode_ms = statistics.median(decode(eng, prompts, gen) for _ in range(3))
+    launches = {name: {path: counts[name] for path, counts in main["launches"].items()}
+                for name in counters()}
+    row = {
+        "arch": arch, "layers": cfg.num_layers, "batch": batch, "prompt": prompt, "gen": gen,
+        "first_id": int(ids[0]), "ranks": DIST_TIER_NODES, "plan_steps": schedule.num_steps,
+        "epochs": DIST_TIER_EPOCHS, "prefetch_depth": DIST_TIER_DEPTH,
+        "read_ms_median_of_5": statistics.median(main["read_ms"]), "read_ms": main["read_ms"],
+        "generate_ms_alone": main["generate_ms_alone"],
+        "generate_ms_storm": main["generate_ms_storm"],
+        "storm_over_alone": main["generate_ms_storm"] / main["generate_ms_alone"],
+        "generate_ms_no_loader": idle_ms,
+        "prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+        "per_tenant": per, "tenant_1_client": main["tenant_1_client"],
+        "storm_client": main["storm_client"],
+        "rank_step_ms_p50": summ["latency"]["step_ms_p50"],
+        "rank_step_ms_p95": summ["latency"]["step_ms_p95"],
+        "rank_steps": summ["latency"]["step_count"], "run_wall_s": report.wall_time_s,
+        "run_s": run_s, "reference_digests_s": ref_s, "trace_check": "OK",
+        "trace_coverage": trace["coverage"],
+        "trace_barrier_ms_per_step": trace["barrier_ms_per_step"],
+        "stale_refusals": summ["stale_refusals"], "peer_fallbacks": summ["peer_fallbacks"],
+        "launches": main["launches"], "card": card,
+    }
+    log("[dist_tier_serve] " + json.dumps(row))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [row], launches
+
+
 def time_calls(calls: dict, **kw) -> dict:
     """Graph-replay device ms per call of each entry (eager logged beside)."""
     graph = {name: graph_ms(fn, **kw) for name, fn in calls.items()}
@@ -2511,6 +2771,10 @@ def main() -> int:
         for name, by_path in tier_launches.items():
             launches[name].update(by_path)
         done("tier_serve")
+        dist_rows, dist_launches = phase_dist_tier_serve(card)
+        for name, by_path in dist_launches.items():
+            launches[name].update(by_path)
+        done("dist_tier_serve")
         phase_train_small()
         done("train_small")
         train_rows = phase_train()
@@ -2528,6 +2792,7 @@ def main() -> int:
     print(json.dumps({"train": train_rows}), flush=True)
     print(json.dumps({"lm_train": lm_rows}), flush=True)
     print(json.dumps({"tier_serve": tier_rows}), flush=True)
+    print(json.dumps({"dist_tier_serve": dist_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,7 +16,7 @@ or, with the plan made explicit (precompute once, execute many)::
     pipeline = execute(spec, schedule)
 
 Own copy of ``repro.data``: streaming specs raise
-:class:`NotImplementedError` (ROADMAP.md Queue 1 slice 6).
+:class:`NotImplementedError` (ROADMAP.md Queue 1 item 2).
 """
 from repro_torch.core.planners import PLANNERS, STRATEGIES, PlanCache
 from repro_torch.data.backends import (

@@ -20,9 +20,9 @@ interface:
     re-reads from the PFS; only a *geometry* disagreement fails loudly
     (:class:`~repro_torch.runtime.wire.HandshakeError`), because silently
     PFS-falling-back forever would mask a misconfigured deployment.
-    Hand it to :func:`repro_torch.data.pipeline.execute` as
-    ``peer_transport=``; the multi-process launcher that wires one per rank
-    is not ported yet (ROADMAP.md Queue 1 slice 6).
+    :func:`repro_torch.runtime.run_distributed` wires one per rank and
+    hands it to :func:`repro_torch.data.pipeline.execute` as
+    ``peer_transport=``.
 
 Ordering contract: all of a step's peer fetches must be issued against the
 buffer state at the *start* of the step — i.e. before any node applies that

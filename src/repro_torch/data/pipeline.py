@@ -33,10 +33,10 @@ When the spec names a ``path``, the backend is opened (or, for
 is used as-is (``path`` and ``store`` are mutually exclusive on the spec).
 
 Streaming specs (``loader="stream"``, :class:`StreamSpec`) raise
-:class:`NotImplementedError`: ROADMAP.md Queue 1 slice 6 ports them.  A
+:class:`NotImplementedError`: ROADMAP.md Queue 1 item 2 ports them.  A
 ``transport="socket"`` spec executes against a live
 :class:`~repro_torch.data.peer.SocketTransport` passed to :func:`execute`;
-the multi-process launcher that wires one per rank is not ported yet.
+:func:`repro_torch.runtime.run_distributed` wires one per rank.
 """
 from __future__ import annotations
 
@@ -54,7 +54,7 @@ from repro_torch.data.backends.base import backend_names, create_store, open_sto
 STREAM_STRATEGY = "stream"
 _STREAM_NOT_PORTED = (
     "streaming ingestion (loader='stream', StreamSpec) is not ported yet: "
-    "ROADMAP.md Queue 1 slice 6"
+    "ROADMAP.md Queue 1 item 2"
 )
 
 __all__ = [
@@ -112,9 +112,9 @@ class LoaderSpec:
     peer_cost: PeerCostModel | None = None
     #: how planned peer fetches move: ``"shared"`` (in-process buffer
     #: mirrors) or ``"socket"`` (real per-node buffer servers over TCP;
-    #: such specs execute against a live
-    #: :class:`~repro_torch.data.peer.SocketTransport` passed to
-    #: :func:`execute`).
+    #: such specs are executed by
+    #: :func:`repro_torch.runtime.run_distributed`, which supplies the live
+    #: :class:`~repro_torch.data.peer.SocketTransport` per rank).
     transport: str = "shared"
     #: scheduler overrides (solar loader only); derived from the fields
     #: above when None.
@@ -398,8 +398,10 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
     (executors never own their store — several pipelines may share one).
 
     ``peer_transport`` injects a live :class:`~repro_torch.data.peer.PeerTransport`
-    (a rank's :class:`~repro_torch.data.peer.SocketTransport`); specs asking
-    for ``transport="socket"`` *require* it.
+    (a rank's :class:`~repro_torch.data.peer.SocketTransport` in
+    multi-process runs); specs asking for ``transport="socket"`` *require*
+    it — the sockets only exist inside
+    :func:`repro_torch.runtime.run_distributed`.
 
     The schedule must match the spec: strategy, geometry, epoch count, and —
     when the schedule records one — the planner's config hash.
@@ -409,11 +411,10 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
     spec = _resolve_store(spec, store).validate()
     if spec.transport == "socket" and peer_transport is None:
         raise ValueError(
-            "transport='socket' needs a live peer transport: pass "
-            "peer_transport=SocketTransport(...) over running BufferServers "
-            "(the multi-process launcher that wires one per rank, "
-            "run_distributed, is not ported yet: ROADMAP.md Queue 1 slice 6); "
-            "use transport='shared' for in-process execution"
+            "transport='socket' needs a live peer transport: multi-process "
+            "runs are stood up by repro_torch.runtime.run_distributed (which "
+            "wires one SocketTransport per rank); use transport='shared' "
+            "for in-process execution"
         )
     opened_here = spec.store is None
     st = spec.store if spec.store is not None else build_store(spec)

@@ -50,9 +50,51 @@ from concurrent.futures import ThreadPoolExecutor
 
 from repro_torch.obs import trace as obs_trace
 
-__all__ = ["PrefetchExecutor"]
+__all__ = ["PrefetchExecutor", "WindowReadAhead"]
 
 _SENTINEL = object()
+
+
+class WindowReadAhead:
+    """Chunk-read pipelining for the distributed rank loop (DESIGN.md §11).
+
+    The epoch-window protocol removes the per-step barriers, so a rank is
+    free to issue the coalesced :class:`~repro_torch.core.plan.ChunkRead` batches
+    of *future* steps (up to ``prefetch_depth`` ahead, never past the
+    window edge) while the current step assembles — the same overlap
+    :class:`PrefetchExecutor` gives a single-process run, restated for a
+    loop that interleaves several owned node-executors and must keep
+    gather/execute on the rank thread (the buffer-server mutation order is
+    the protocol).  Only the PFS reads move off-thread; they are pure.
+    """
+
+    def __init__(self, num_workers: int = 4):
+        self._pool = ThreadPoolExecutor(
+            max_workers=max(int(num_workers), 1), thread_name_prefix="solar-io"
+        )
+
+    def submit(self, store, sp) -> list:
+        """Issue one step-plan's per-node chunk reads; returns futures."""
+        return [
+            self._pool.submit(
+                store.read_ranges, [(c.start, c.stop) for c in npn.chunks]
+            )
+            for npn in sp.nodes
+        ]
+
+    @staticmethod
+    def collect(futs) -> list | None:
+        """Resolve a :meth:`submit` result into ``chunk_arrays`` (or None)."""
+        return [f.result() for f in futs] if futs else None
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+    def __enter__(self) -> "WindowReadAhead":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class _Failure:

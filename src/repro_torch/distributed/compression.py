@@ -6,7 +6,7 @@ to blocks of 256, and quantized with a per-block f32 scale ``max|x| / 127``
 gradient (error feedback, Karimireddy 2019).  ``torch.round`` rounds half to
 even like ``jnp.round``, so the payload matches the JAX package bit for bit.
 The collective (``compressed_psum``) is not ported yet: ROADMAP.md Queue 1
-slice 6.
+item 3.
 """
 from __future__ import annotations
 

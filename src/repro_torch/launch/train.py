@@ -13,6 +13,10 @@ model's training step, with checkpoints; and plan artifacts without training.
         --epochs 6 --out /tmp/solar.plan.npz
     PYTHONPATH=src python -m repro_torch.launch.train plan --inspect /tmp/solar.plan.npz
 
+    # multi-process data pipeline: N rank processes, socket peer transport
+    PYTHONPATH=src python -m repro_torch.launch.train distributed --nodes 2 \
+        --peer-fetch --num-samples 2048 --epochs 2 --verify
+
 The counterpart of the JAX package's ``launch/train.py`` (``run_train``,
 ``run_plan``) for every family, built on the port's own ``core`` and
 ``data`` copies.  A synthetic token store (int32 rows of ``seq_len + 1``,
@@ -25,9 +29,11 @@ trains through its module's init (seed 0) and ``train_loss``
 (``models/encdec.py`` for the encoder-decoder, ``models/lm.py`` for the
 rest).  Runs on the card unless ``--device cpu`` is given; there,
 attention, the selective scan and RMSNorm go through the hand-written
-kernels, forward and backward.  The ``distributed`` and
-``stream`` subcommands (multi-process runtime, streaming ingestion) are not
-ported yet.
+kernels, forward and backward.  ``distributed`` (``run_distributed_cmd``,
+the JAX launcher's subcommand of the same name) runs the data pipeline
+only, as N numpy-only rank processes; the models and torch are imported by
+``train`` alone.  The ``stream`` subcommand (streaming ingestion) is not
+ported yet.  Every subcommand takes ``-v``/``-q``.
 """
 from __future__ import annotations
 
@@ -40,7 +46,6 @@ import tempfile
 import numpy as np
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config
 from repro_torch.data import (
     STRATEGIES,
     DatasetSpec,
@@ -49,13 +54,10 @@ from repro_torch.data import (
     build_pipeline,
     build_store,
 )
-from repro_torch.models import encdec, lm
-from repro_torch.optim.adamw import AdamWConfig
-from repro_torch.train.step import init_train_state, make_train_step
-from repro_torch.train.trainer import Trainer
+from repro_torch.obs import log as obs_log
 
 __all__ = ["build_parser", "loader_spec", "make_batch_fn", "make_step", "train",
-           "run_plan", "main"]
+           "run_plan", "run_distributed_cmd", "main"]
 
 #: The initial parameters' seed (the JAX launcher's PRNGKey(0)).
 SEED = 0
@@ -71,6 +73,7 @@ def _add_pipeline_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--plan-cache", default=None,
                     help="directory memoizing compiled plans by config hash")
+    obs_log.add_verbosity_args(ap)
 
 
 def _add_train_args(ap: argparse.ArgumentParser) -> None:
@@ -133,8 +136,13 @@ def build_parser() -> argparse.ArgumentParser:
         "train", help="train a model through the plan-first pipeline"))
     _add_plan_args(sub.add_parser(
         "plan", help="precompute or inspect a plan artifact (no training)"))
-    for name in ("distributed", "stream"):
-        sub.add_parser(name, help="not ported yet (ROADMAP.md Queue 1, slice 6)")
+    _add_distributed_args(sub.add_parser(
+        "distributed",
+        help="execute one plan as N rank processes over the socket peer "
+             "transport (data pipeline only, no model training)"))
+    stream = sub.add_parser(
+        "stream", help="not ported yet (ROADMAP.md Queue 1, item 2)")
+    obs_log.add_verbosity_args(stream)
     return ap
 
 
@@ -214,6 +222,140 @@ def run_plan(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# distributed
+# ---------------------------------------------------------------------------
+
+
+def _add_distributed_args(ap: argparse.ArgumentParser) -> None:
+    _add_pipeline_args(ap)
+    ap.add_argument("--backend", default="binary", choices=backend_names(),
+                    help="storage backend serving --data (created on first "
+                         "run; must be path-based — every rank reopens it)")
+    ap.add_argument("--data", default=None,
+                    help="dataset path (default: solar_tokens_torch.<backend> "
+                         "in the temporary directory)")
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--peer-fetch", action="store_true",
+                    help="plan + serve the peer tier over real sockets "
+                         "(capacity_factor=1.0 so the tier carries traffic)")
+    ap.add_argument("--verify", action="store_true",
+                    help="also execute the plan in-process and assert every "
+                         "rank's stream digest matches bit for bit (and, "
+                         "under faults, that the XOR-aggregate digest of "
+                         "the whole run matches despite deaths)")
+    ap.add_argument("--timeout", type=float, default=300.0,
+                    help="whole-run timeout in seconds")
+    ap.add_argument("--faults", default=None, metavar="SPEC",
+                    help="seeded fault-injection plan, e.g. "
+                         "'seed=7,crash=1,corrupt=2,slow=1' "
+                         "(see repro_torch.runtime.faults.FaultPlan.parse; "
+                         "ranks= defaults to --nodes)")
+    ap.add_argument("--recovery", default="reslice",
+                    choices=("reslice", "degrade"),
+                    help="on rank death: re-slice its remaining plan onto "
+                         "survivors (default) or degrade to PFS fallbacks")
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="epoch-window skew: ranks barrier only every "
+                         "depth+1 steps and pipeline that many steps of "
+                         "chunk reads inside the window (0 = lockstep; "
+                         "digests are depth-invariant)")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="flight recorder (DESIGN.md §13): every rank dumps "
+                         "trace-rank{N}.jsonl + a Chrome trace-event file "
+                         "here; analyze with `python -m repro_torch.obs.report`")
+    ap.add_argument("--metrics-out", default=None, metavar="PATH",
+                    help="write the coordinator's live telemetry "
+                         "time-series + the final summary as one JSON file")
+
+
+def run_distributed_cmd(args) -> dict:
+    """Run one plan as ``--nodes`` rank processes; print and return the
+    run's ``summary()`` (with a ``verify`` block under ``--verify``).
+    Exits non-zero on a digest mismatch or on a death nobody injected."""
+    from repro_torch.core.scheduler import SolarConfig
+    from repro_torch.data import plan
+    from repro_torch.runtime import (
+        FaultPlan,
+        in_process_aggregate,
+        in_process_digests,
+        run_distributed,
+    )
+
+    faults = None
+    if args.faults:
+        text = args.faults
+        if "ranks=" not in text:
+            text = f"ranks={args.nodes},{text}"
+        faults = FaultPlan.parse(text)
+    if args.data is None:
+        args.data = os.path.join(tempfile.gettempdir(), f"solar_tokens_torch.{args.backend}")
+    solar = None
+    if args.loader == "solar" and args.peer_fetch:
+        # capacity_factor=1.0 is the regime where the tier carries traffic
+        # (capacity-spilled hits become interconnect fetches, DESIGN.md §6).
+        solar = SolarConfig(
+            num_nodes=args.nodes, local_batch=args.local_batch,
+            buffer_size=args.buffer, seed=args.seed,
+            capacity_factor=1.0, enable_peer=True,
+        )
+    spec = LoaderSpec(
+        loader=args.loader, backend=args.backend, path=args.data,
+        num_nodes=args.nodes, local_batch=args.local_batch,
+        num_epochs=args.epochs, buffer_size=args.buffer, seed=args.seed,
+        collect_data=True, peer_fetch=args.peer_fetch, solar=solar,
+        plan_cache=args.plan_cache, transport="socket",
+        prefetch_depth=max(args.prefetch_depth, 0),
+    )
+    store = build_store(spec, create=True,
+                        dataset=DatasetSpec(args.num_samples, (args.seq_len + 1,), "<i4"),
+                        fill="random")
+    store.close()  # ranks reopen it themselves; the parent only creates it
+    schedule = plan(spec)  # once: the run and the reference share one plan
+    report = run_distributed(
+        spec, schedule=schedule, timeout_s=args.timeout,
+        faults=faults, recovery=args.recovery,
+        trace_dir=args.trace_dir, metrics_out=args.metrics_out,
+        verbosity=obs_log.verbosity_from(args),
+    )
+    out = report.summary()
+    # a death nobody injected must not exit green, re-sliced or not; an
+    # injected crash under reslice is the scenario being tested (pair it
+    # with --verify to assert aggregate parity).
+    unexpected_death = report.dead and (args.recovery != "reslice" or faults is None)
+    if args.verify:
+        ref = in_process_digests(spec, schedule=schedule)
+        mismatched = [
+            r.rank for r in report.ranks
+            if r.status == "ok" and not r.rejoined and r.digest != ref[r.rank]
+        ]
+        agg_parity = report.aggregate_digest() == in_process_aggregate(spec, schedule=schedule)
+        out["verify"] = {
+            "digest_parity": not mismatched and report.ok,
+            "aggregate_parity": agg_parity,
+            "mismatched_ranks": mismatched,
+            "dead_ranks": report.dead,
+        }
+        print(json.dumps(out, indent=1))
+        if mismatched:
+            raise SystemExit(
+                f"digest mismatch on ranks {mismatched}: the multi-process "
+                "run trained different bytes than the in-process reference")
+        if not agg_parity:
+            raise SystemExit(
+                "aggregate digest mismatch: the run did not execute the "
+                "planned global sample stream exactly once")
+        if unexpected_death:
+            raise SystemExit(
+                f"ranks {report.dead} died during the run: digest parity "
+                "could not be verified for them")
+        return out
+    print(json.dumps(out, indent=1))
+    if unexpected_death:
+        raise SystemExit(f"ranks {report.dead} died during the run")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
 
@@ -253,6 +395,10 @@ def make_batch_fn(cfg, capacity: int):
 def make_step(cfg, args):
     """The launcher's optimizer config and training step on flat params
     (``train_loss``'s 'auto' paths: the kernels on the card)."""
+    from repro_torch.models import encdec, lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import make_train_step
+
     opt = AdamWConfig(lr=args.lr, total_steps=args.steps)
     train_loss = encdec.train_loss if cfg.family == "encdec" else lm.train_loss
 
@@ -262,11 +408,16 @@ def make_step(cfg, args):
     return opt, make_train_step(cfg, opt, loss_fn)
 
 
-def train(args, device=None, *, cfg=None) -> Trainer:
+def train(args, device=None, *, cfg=None):
     """Build the store, the pipeline and the model (its family's init from
     ``SEED``), train ``args.steps`` planned steps, and return the finished
     Trainer.  ``cfg`` defaults to ``--arch`` (``reduced()`` with
     ``--reduced``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, lm
+    from repro_torch.train.step import init_train_state
+    from repro_torch.train.trainer import Trainer
+
     device = resolve_device(device if device is not None else args.device)
     if cfg is None:
         cfg = get_config(args.arch)
@@ -305,7 +456,7 @@ def train(args, device=None, *, cfg=None) -> Trainer:
     return trainer
 
 
-def run_train(args) -> Trainer:
+def run_train(args):
     trainer = train(args)
     hist = trainer.metrics_history
     for rec in hist[:: max(len(hist) // 10, 1)]:
@@ -320,13 +471,15 @@ def main(argv=None):
     if argv and argv[0] not in ("train", "plan", "distributed", "stream", "-h", "--help"):
         argv = ["train"] + argv
     args = build_parser().parse_args(argv)
-    if args.cmd in ("distributed", "stream"):
+    obs_log.configure(obs_log.verbosity_from(args))
+    if args.cmd == "stream":
         raise NotImplementedError(
-            f"the {args.cmd!r} subcommand needs the multi-process runtime and "
-            "streaming ingestion, which are not ported yet (ROADMAP.md Queue 1, "
-            "slice 6)")
+            "the 'stream' subcommand needs streaming ingestion, which is not "
+            "ported yet (ROADMAP.md Queue 1, item 2)")
     if args.cmd == "plan":
         return run_plan(args)
+    if args.cmd == "distributed":
+        return run_distributed_cmd(args)
     return run_train(args)
 
 

@@ -419,7 +419,10 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
     library (and no TF32) is involved.
 
     With ``return_state`` also returns (h_last [B,DI,N], conv_tail
-    [B, conv_k-1, DI]): the last ``conv_k - 1`` rows of the conv's input.
+    [B, conv_k-1, DI]): the last ``conv_k - 1`` rows of the conv's input,
+    its left zero padding included, so a prompt shorter than ``conv_k - 1``
+    tokens still leaves a full tail and decode continues the full forward.
+    (The JAX package slices the unpadded input and its decode then raises.)
     """
     di = p["in_proj"].shape[1] // 2
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)
@@ -444,7 +447,7 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]
     if return_state:
-        conv_tail = xin_ext[:, -(conv_k - 1):] if conv_k > 1 else None
+        conv_tail = xe[:, -(conv_k - 1):].to(xin.dtype) if conv_k > 1 else None
         return out, h_last, conv_tail
     return out
 

@@ -1,4 +1,4 @@
-"""Flight-recorder span tracer (DESIGN.md §13), as far as the port calls it.
+"""Flight-recorder span tracer (DESIGN.md §13).
 
 One process holds at most one live :class:`Tracer` (module singleton); when
 tracing is off the singleton is a :class:`_NullTracer` whose every method is
@@ -7,25 +7,35 @@ nothing else — a tracing-off run is byte-identical to an uninstrumented one.
 
 Records are **complete spans**: one fixed-dtype numpy row per span with
 begin/end timestamps from ``time.perf_counter()`` (the per-process monotonic
-clock).  Every thread appends into its own preallocated ring buffer, so
-recording is lock-free and allocation-free: a full ring wraps and overwrites
-the oldest rows (the count of overwritten rows is reported as ``dropped``).
+clock — timestamps compare within one rank process, never across ranks).
+Every thread appends into its own preallocated ring buffer, so recording is
+lock-free and allocation-free: a full ring wraps and overwrites the oldest
+rows (the count of overwritten rows is reported as ``dropped``).
 
-Span *kinds* are interned strings.  The port's sites are the chunk reads of
-the storage backends, the prefetch queue waits, peer gathers and socket
-peer fetches (retries and breaker transitions as instants), the buffer
-server's fetch, skew-park, tenant-yield and shed, fault firings, and the
-trainer's make-batch and compute sections; each stamps two free integer
-payload fields ``a``/``b`` and the tracer's *current step* (set by the
-trainer via :meth:`Tracer.set_step`).
+Span *kinds* are interned strings; the well-known kinds below cover the
+whole data-loading runtime (chunk reads, prefetch queue waits, peer
+fetch/retry/breaker, buffer-server serve/skew-park/tenant-yield, barrier
+waits, rank-loop step sections, trainer compute, fault firings).  Sites
+stamp two free integer payload fields ``a``/``b`` (bytes read, source node,
+attempt index, ...) and the tracer's *current step* — set by the rank loop
+via :meth:`Tracer.set_step` — so the report CLI can attribute every span,
+including ones recorded on server/prefetch threads, to a training step.
 
-:meth:`Tracer.records` merges the rings.  The JAX package's JSONL and
-Chrome trace exports and its report CLI are not ported yet (ROADMAP.md).
+Exports: ``trace-rank{r}.jsonl`` (one JSON object per record, seconds) and
+``trace-rank{r}.trace.json`` (Chrome trace-event format, microseconds —
+loadable in Perfetto / ``chrome://tracing``).
+
+Own copy of the JAX package's ``obs/trace.py``: the same kinds in the same
+registration order and byte-identical exports for the same records, so
+either package's report CLI reads the other's dumps.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
+from contextlib import nullcontext
 
 import numpy as np
 
@@ -68,7 +78,7 @@ def kind_names() -> list[str]:
         return list(_id_to_kind)
 
 
-# -- well-known span kinds (the §13 names the port records) -----------------
+# -- well-known span kinds (the §13 vocabulary; ids are import-order stable) --
 CHUNK_READ = kind_id("chunk.read")              # backend _pread; a=samples
 PREFETCH_QWAIT = kind_id("prefetch.qwait")      # consumer blocked on the queue
 PEER_FETCH = kind_id("peer.fetch")              # one transport.fetch; a=source
@@ -80,8 +90,17 @@ SERVE_FETCH = kind_id("serve.fetch")            # BufferServer fetch; a=node
 SERVE_SKEW_PARK = kind_id("serve.skew_park")    # §11 bounded lead wait; a=node
 SERVE_TENANT_YIELD = kind_id("serve.tenant_yield")  # §12 priority wait
 SERVE_SHED = kind_id("serve.shed")              # instant; one shed tenant read
-TRAIN_MAKE_BATCH = kind_id("train.make_batch")  # StepBatch -> device batch
-TRAIN_COMPUTE = kind_id("train.compute")        # step + sync on its loss
+BARRIER_WAIT = kind_id("barrier.wait")          # ctrl.barrier; a=step
+STEP = kind_id("step")                          # one rank-loop iteration
+STEP_PRIME = kind_id("step.prime")              # plan pulls + read-ahead submit
+STEP_PEER = kind_id("step.peer")                # gather_peers section
+STEP_EXECUTE = kind_id("step.execute")          # mutating execute_step section
+HB_SEND = kind_id("hb.send")                    # synchronous heartbeat
+TRAIN_MAKE_BATCH = kind_id("train.make_batch")  # StepBatch -> model batch
+TRAIN_COMPUTE = kind_id("train.compute")        # jitted step + block_until_ready
+FAULT = kind_id("fault")                        # instant; a=nth/step, b=seed
+
+_NULL_CTX = nullcontext()
 
 
 class _Ring:
@@ -107,8 +126,9 @@ class Tracer:
         self._local = threading.local()
         self._rings: list[_Ring] = []
         self._rings_lock = threading.Lock()
-        #: the trainer's current step index, stamped into every record
-        #: (including records from prefetch threads) — per-step attribution.
+        #: the rank loop's current step index, stamped into every record
+        #: (including records from server/prefetch threads) — per-step
+        #: attribution in ``repro_torch.obs.report``.
         self.step = -1
 
     # perf_counter straight through: site code does ``t0 = tr.t()``.
@@ -139,7 +159,11 @@ class Tracer:
         now = time.perf_counter()
         self.rec(kind, now, now, a, b)
 
-    # -- collection ------------------------------------------------------------
+    def span(self, kind: int, a: int = 0, b: int = 0):
+        """Context-manager convenience for cold(ish) paths."""
+        return _Span(self, kind, a, b)
+
+    # -- collection / export -------------------------------------------------
 
     def records(self) -> tuple[np.ndarray, list[str], int]:
         """Merged records sorted by ``t0`` + per-record thread names + drops."""
@@ -163,6 +187,71 @@ class Tracer:
         order = np.argsort(merged["t0"], kind="stable")
         return merged[order], [tids[i] for i in order.tolist()], dropped
 
+    def dump(self, out_dir: str, rank: int = 0) -> dict:
+        """Write both export formats; returns paths + record/drop counts."""
+        recs, tids, dropped = self.records()
+        os.makedirs(out_dir, exist_ok=True)
+        jsonl = os.path.join(out_dir, f"trace-rank{rank}.jsonl")
+        chrome = os.path.join(out_dir, f"trace-rank{rank}.trace.json")
+        names = kind_names()
+        with open(jsonl, "w") as f:
+            f.write(json.dumps({
+                "meta": True, "rank": int(rank), "pid": os.getpid(),
+                "records": int(len(recs)), "dropped": int(dropped),
+                "clock": "perf_counter",
+            }) + "\n")
+            for row, tid in zip(recs, tids):
+                f.write(json.dumps({
+                    "name": names[int(row["kind"])],
+                    "ts": float(row["t0"]),
+                    "dur": float(row["t1"] - row["t0"]),
+                    "step": int(row["step"]),
+                    "a": int(row["a"]),
+                    "b": int(row["b"]),
+                    "tid": tid,
+                }) + "\n")
+        events = [
+            {
+                "name": names[int(row["kind"])],
+                "ph": "X",
+                "ts": float(row["t0"]) * 1e6,
+                "dur": float(row["t1"] - row["t0"]) * 1e6,
+                "pid": int(rank),
+                "tid": tid,
+                "args": {
+                    "step": int(row["step"]),
+                    "a": int(row["a"]), "b": int(row["b"]),
+                },
+            }
+            for row, tid in zip(recs, tids)
+        ]
+        with open(chrome, "w") as f:
+            json.dump({
+                "traceEvents": events,
+                "displayTimeUnit": "ms",
+                "otherData": {"rank": int(rank), "dropped": int(dropped)},
+            }, f)
+        return {
+            "jsonl": jsonl, "chrome": chrome,
+            "records": int(len(recs)), "dropped": int(dropped),
+        }
+
+
+class _Span:
+    """Reusable enter/exit wrapper recording one complete span on exit."""
+
+    __slots__ = ("_tr", "_kind", "_a", "_b", "_t0")
+
+    def __init__(self, tr: Tracer, kind: int, a: int, b: int):
+        self._tr, self._kind, self._a, self._b = tr, kind, a, b
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._tr.rec(self._kind, self._t0, a=self._a, b=self._b)
+
 
 class _NullTracer:
     """Tracing off: every operation is a no-op (the digest-parity default)."""
@@ -183,6 +272,9 @@ class _NullTracer:
 
     def instant(self, kind: int, a: int = 0, b: int = 0) -> None:
         pass
+
+    def span(self, kind: int, a: int = 0, b: int = 0):
+        return _NULL_CTX
 
 
 _NULL = _NullTracer()

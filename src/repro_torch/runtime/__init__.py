@@ -1,26 +1,34 @@
-"""Distributed runtime: wire protocol, buffer servers, fault injection.
+"""Distributed runtime: wire protocol, buffer servers, elastic launcher.
 
-Own copy of the JAX package's ``repro.runtime`` below its launcher: the
-framed wire protocol (:mod:`~repro_torch.runtime.wire`, byte-identical to
-the JAX package's), the per-node :class:`BufferServer` that serves peer
-fetches and data-tier tenants out of a live buffer mirror, and the seeded
-fault-injection harness (:mod:`~repro_torch.runtime.faults`).
+Own copy of the JAX package's ``repro.runtime``, the multi-process half of
+the loader (DESIGN.md §8) and its elastic recovery layer (DESIGN.md §9):
+one plan artifact, N spawned rank processes, peer fetches served over TCP
+out of live buffer mirrors, heartbeat-driven failure detection with plan
+re-slicing on rank death, and a seeded fault-injection harness.  Frames are
+byte-identical to the JAX package's (:mod:`~repro_torch.runtime.wire`), and
+the ranks import no torch: they hold no tensors.
 
-    from repro_torch.runtime import BufferServer
-    from repro_torch.data import SocketTransport
+    from repro_torch.runtime import run_distributed, in_process_digests
 
-    server = BufferServer(0, (4,), "<f4").start()
-    server.attach(lambda node: mirror)      # a live _DataMirror
-    server.at_step(step)
-    transport = SocketTransport({0: (server.host, server.port)},
-                                sample_shape=(4,), dtype="<f4", timeout_s=2.0)
-    transport.at_step(step)
-    rows, ok = transport.fetch(0, ids)
+    report = run_distributed(spec)            # N = spec.num_nodes processes
+    assert report.digests() == in_process_digests(spec)
 
-The multi-process launcher (``run_distributed``, ``in_process_digests``)
-is not ported yet: ROADMAP.md Queue 1 slice 6.
+    from repro_torch.runtime import FaultPlan, in_process_aggregate
+
+    chaos = FaultPlan.compile(seed=7, num_ranks=2, crashes=1, corrupt=2)
+    report = run_distributed(spec, faults=chaos)   # a rank dies mid-run...
+    assert report.aggregate_digest() == in_process_aggregate(spec)  # ...and
+    # the global sample stream is still executed exactly once.
 """
 from repro_torch.runtime.faults import ArmedFaults, Fault, FaultPlan
+from repro_torch.runtime.launcher import (
+    DistributedReport,
+    LauncherConfigError,
+    RankResult,
+    in_process_aggregate,
+    in_process_digests,
+    run_distributed,
+)
 from repro_torch.runtime.server import BufferServer
 from repro_torch.runtime.wire import (
     WIRE_VERSION,
@@ -35,11 +43,17 @@ __all__ = [
     "ArmedFaults",
     "BufferServer",
     "ChecksumMismatch",
+    "DistributedReport",
     "Fault",
     "FaultPlan",
     "HandshakeError",
+    "LauncherConfigError",
     "ProtocolError",
+    "RankResult",
     "TruncatedFrame",
     "WIRE_VERSION",
     "WireError",
+    "in_process_aggregate",
+    "in_process_digests",
+    "run_distributed",
 ]

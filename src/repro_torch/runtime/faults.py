@@ -2,9 +2,9 @@
 
 Own copy of the JAX package's ``runtime/faults.py``: the same plans from
 the same seeds, and a process-global armed plan of its own (arming one
-package leaves the other disarmed).  The rank step loop that consults the
-``crash``/``hb_loss`` faults comes with the multi-process launcher
-(ROADMAP.md Queue 1 slice 6).
+package leaves the other disarmed).  The rank step loop of
+:mod:`repro_torch.runtime.launcher` consults the ``crash``/``hb_loss``
+faults.
 
 Every recovery path in the elastic runtime (DESIGN.md §9) — the wire
 framing's corruption detection, the transport's retry/backoff/circuit-breaker

@@ -32,10 +32,10 @@ anywhere the runtime does.
 
 Own copy of the JAX package's ``serve/datatier.py``: its clients attach to
 either package's servers and its servers serve either package's clients,
-bit for bit; :func:`rows_to_prompts` maps rows to the same prompts.  The
-multi-process launcher that calls :func:`wire_rank_tier` per rank is not
-ported yet (ROADMAP.md Queue 1 slice 6); :class:`StandaloneTier` stands up
-a one-node tier without it.
+bit for bit; :func:`rows_to_prompts` maps rows to the same prompts.
+:func:`repro_torch.runtime.run_distributed` (``serve_tier=``) calls
+:func:`wire_rank_tier` in every rank; :class:`StandaloneTier` stands up a
+one-node tier without a training run.
 """
 from __future__ import annotations
 

@@ -53,8 +53,31 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.configs.llava_next_mistral_7b",
                  "repro_torch.configs.whisper_medium", "repro_torch.runtime",
                  "repro_torch.runtime.wire", "repro_torch.runtime.faults",
-                 "repro_torch.runtime.server", "repro_torch.serve.datatier"):
+                 "repro_torch.runtime.server", "repro_torch.serve.datatier",
+                 "repro_torch.runtime.launcher", "repro_torch.obs.log",
+                 "repro_torch.obs.metrics", "repro_torch.obs.report",
+                 "repro_torch.serve.tenant_load"):
         assert name in report["imported"]
+
+
+_RANK_PROBE = """
+import json, sys
+import repro_torch.runtime.launcher, repro_torch.data.pipeline
+import repro_torch.serve.datatier, repro_torch.obs.report
+import repro_torch.serve.tenant_load
+print(json.dumps(sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro"))))
+"""
+
+
+def test_launcher_ranks_import_no_torch():
+    """What a launcher rank (and a tenant load process) imports — the
+    launcher, the loader, the data tier, obs — pulls in neither torch nor
+    JAX nor the JAX package: the ranks hold no tensors."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", _RANK_PROBE], env=env, text=True,
+                         capture_output=True, timeout=120, check=True)
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.fixture()

@@ -216,3 +216,86 @@ def test_generate_matches_jax_engine(weights, arch):
     assert out.shape == (B, GEN) and out.dtype == np.int32
     np.testing.assert_array_equal(out, want)
     np.testing.assert_array_equal(eng.generate(prompts, GEN), out)  # repeat
+
+
+# ---------------------------------------------------------------------------
+# Prompts shorter than the conv, and a ring cache a short prompt leaves
+# unfilled: the port against its own full forward, and where the JAX
+# package departs from it.
+# ---------------------------------------------------------------------------
+
+SHORT_B, SHORT_GEN = 3, 4
+
+
+def _full_forward_logits(params, tokens, cfg):
+    """Last-position f32 logits of the full forward over ``tokens`` [B, T]
+    (the oracle of ``test_models.py::test_decode_matches_full_forward``)."""
+    with torch.inference_mode():
+        hidden, _ = lm.forward_hidden(params, torch.from_numpy(tokens).long(), cfg)
+        return lm._logits(params, hidden, cfg)[:, -1]
+
+
+@pytest.mark.parametrize("s", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_short_prompt_decode_continues_the_full_forward(weights, arch, s):
+    """A prompt of fewer than ``ssm_conv - 1`` tokens: the first decode
+    step's logits and every greedy token of ``generate`` equal the full
+    forward over the prompt and the tokens generated so far."""
+    cfg, _ = _cfgs(arch)
+    assert s < cfg.ssm_conv - 1
+    params = params_from_jax(weights[arch], "cpu")
+    tokens = np.random.default_rng(4).integers(0, 256, (SHORT_B, s + 1)).astype(np.int32)
+    spec = lm.CacheSpec.build(cfg, s + SHORT_GEN + 1)
+    with torch.inference_mode():
+        _, cache = lm.prefill(params, torch.from_numpy(tokens[:, :s]).long(), cfg, spec)
+        logits, _ = lm.decode_step(params, cache, torch.from_numpy(tokens[:, s]).long(),
+                                   cfg, spec)
+    _close(logits, _full_forward_logits(params, tokens, cfg).numpy())
+
+    prompts = tokens[:, :s]
+    out = ServeEngine(cfg, params, max_len=s + SHORT_GEN + 1,
+                      device="cpu").generate(prompts, SHORT_GEN)
+    for i in range(SHORT_GEN):
+        want = _full_forward_logits(params, np.concatenate([prompts, out[:, :i]], 1), cfg)
+        np.testing.assert_array_equal(out[:, i], torch.argmax(want, -1).numpy())
+
+
+@pytest.mark.parametrize("s", [1, 2])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_jax_engine_refuses_a_prompt_shorter_than_the_conv(weights, arch, s):
+    """A departure, pinned: the JAX engine raises on the same prompts (its
+    prefill keeps an ``s``-row conv tail that decode cannot write into the
+    ``ssm_conv - 1`` rows of its cache), where the port serves them."""
+    _, jcfg = _cfgs(arch)
+    prompts = np.random.default_rng(4).integers(0, 256, (SHORT_B, s)).astype(np.int32)
+    eng = JaxEngine(jcfg, jax.tree.map(jnp.asarray, weights[arch]),
+                    max_len=s + SHORT_GEN + 1)
+    with pytest.raises(TypeError):
+        eng.generate(prompts, SHORT_GEN)
+
+
+def test_ring_cache_from_a_prompt_shorter_than_the_window():
+    """Prompt 5 < window 8 < max_len 16: the ring is filled by decode.  The
+    port's logits stay on the full forward for all 6 steps; the JAX decode
+    departs from it (its prefill cache keeps 5 rows and decode's write at
+    ``pos % window`` clamps), which is pinned here."""
+    cfg, jcfg = _cfgs("hymba-1.5b", sliding_window=8)
+    tree = _noisy_weights(jcfg, seed=3)
+    params, jparams = params_from_jax(tree, "cpu"), jax.tree.map(jnp.asarray, tree)
+    spec, jspec = lm.CacheSpec.build(cfg, 16), jlm.CacheSpec.build(jcfg, 16)
+    assert spec.ring and spec.cache_len == 8 and jspec.ring
+    tokens = np.random.default_rng(4).integers(0, cfg.vocab_size, (2, 11)).astype(np.int32)
+
+    with torch.inference_mode():
+        _, cache = lm.prefill(params, torch.from_numpy(tokens[:, :5]).long(), cfg, spec)
+    _, jcache = _jprefill(jparams, jnp.asarray(tokens[:, :5]), jcfg, jspec)
+    jax_off = 0.0
+    for t in range(5, 11):
+        with torch.inference_mode():
+            logits, cache = lm.decode_step(params, cache,
+                                           torch.from_numpy(tokens[:, t]).long(), cfg, spec)
+        jlogits, jcache = _jdecode(jparams, jcache, jnp.asarray(tokens[:, t]), jcfg, jspec)
+        want = _full_forward_logits(params, tokens[:, :t + 1], cfg).numpy()
+        _close(logits, want)
+        jax_off = max(jax_off, float(np.abs(np.asarray(jlogits) - want).max()))
+    assert jax_off > 0.1, jax_off
