@@ -112,6 +112,20 @@ Phases, all run in order, each of which must pass:
                memory; every forward and backward launch count must equal
                ``expected_train_counts`` and every loss be finite.  Prints a
                ``{"lm_train": [...]}`` line;
+     stream_train — hymba-1.5b at full width and depth, bf16, trains on
+               sealed stream windows while two producer threads ingest
+               (``repro_torch.stream.run_stream``, overlapped planning,
+               ``prefetch_depth`` 2, ``verify``): a memory store of 1024
+               token rows of 2049, reservoir admission of 512, 3 windows of
+               2 steps of 2 nodes x 8 rows.  The ``on_batch`` hook stages
+               each batch through ``PinnedBatchStager`` and runs
+               ``launch.train``'s step.  Plan and stream parity with the
+               one-shot offline replan, 3 windows and 6 steps, launch counts
+               of 6 x ``expected_train_counts``, finite losses and 16
+               weighted rows a step; then ``python -m repro_torch.launch.
+               train stream --verify`` in three child processes (overlapped,
+               ``--stop-the-world``, ``--distributed``), each of which must
+               exit 0.  Prints a ``{"stream_train": [...]}`` line;
   7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
@@ -387,6 +401,22 @@ LM_TRAIN = [("hymba-1.5b", None, 3, 2048), ("qwen2-0.5b", None, 3, 2048),
             ("llava-next-mistral-7b", 8, 2, 2048), ("whisper-medium", None, 2, 448)]
 LM_TRAIN_ARGS = ["--nodes", "2", "--local-batch", "5", "--buffer", "64",
                  "--epochs", "1", "--num-samples", "256", "--num-workers", "2"]
+# Streaming: hymba-1.5b (seq 2048) on 3 windows of 2 steps, 2 nodes x 8 rows
+# (a stream's capacity is its local batch: no padding rows), over 1024 token
+# rows that two producers ingest at 64 rows/s into a reservoir of 512; a seal
+# waits for 32 fresh rows.
+STREAM_TRAIN = ("hymba-1.5b", 2048)
+STREAM_ROWS = 1024
+STREAM_SPEC = dict(num_nodes=2, local_batch=8, buffer_size=64, seed=0, prefetch_depth=2)
+STREAM_WINDOWS = dict(window_steps=2, admission="reservoir", reservoir_size=512,
+                      watermark=32, max_windows=3)
+STREAM_INGEST = dict(seed=0, admission="reservoir", reservoir_size=512, max_pending=256)
+STREAM_PRODUCERS = dict(threads=2, data_seed=0, rate_hz=64)
+STREAM_CLI = ["stream", "--nodes", "2", "--num-samples", "2048", "--window-steps", "8",
+              "--watermark", "32", "--verify"]
+STREAM_CLI_MODES = {"overlap": [], "stop_the_world": ["--stop-the-world"],
+                    "distributed": ["--distributed"]}
+STREAM_CLI_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -2735,6 +2765,166 @@ def phase_lm_train() -> tuple[list, dict]:
     return rows, launches
 
 
+def _stream_clis(tmp: str) -> list:
+    """``python -m repro_torch.launch.train stream --verify`` in one child
+    process per mode, all started together, each over its own store; each
+    must exit 0.  Returns a row per child."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    for mode, extra in STREAM_CLI_MODES.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *STREAM_CLI, *extra,
+               "--data", f"{tmp}/cli_{mode}"]
+        procs[mode] = (subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True),
+                       time.perf_counter())
+    rows = []
+    try:
+        for mode, (proc, t0) in procs.items():
+            out, err = proc.communicate(timeout=STREAM_CLI_TIMEOUT_S)
+            wall_s = time.perf_counter() - t0
+            for line in err.strip().splitlines()[-6:]:
+                log(f"[stream_train] CLI {mode}| {line}")
+            if proc.returncode != 0:
+                raise AssertionError(f"stream CLI ({mode}) exited {proc.returncode}")
+            summary = json.loads(out[out.index("{"):out.rindex("}") + 1])
+            rows.append({"run": f"cli {mode}", "windows": summary["windows"],
+                         "steps": summary["steps"],
+                         "blocked_on_planning_s": summary.get("blocked_on_planning_s"),
+                         "verify": summary["verify"], "process_wall_s": wall_s})
+            log(f"[stream_train] CLI {mode}: {json.dumps(rows[-1])}")
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return rows
+
+
+def phase_stream_train() -> tuple[list, dict]:
+    """hymba-1.5b trains on sealed stream windows while producers ingest
+    (``STREAM_*``), then the stream CLI runs in child processes: returns the
+    ``stream_train`` line's rows and {kernel: {"<arch> stream_train":
+    launches}}."""
+    import tempfile
+    import threading
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DatasetSpec, LoaderSpec, build_store
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm
+    from repro_torch.stream import (IngestSession, StreamSpec, run_producers,
+                                    run_stream)
+    from repro_torch.train.step import init_train_state
+    from repro_torch.train.trainer import PinnedBatchStager
+
+    arch, seq = STREAM_TRAIN
+    cfg = get_config(arch)
+    steps = STREAM_WINDOWS["window_steps"] * STREAM_WINDOWS["max_windows"]
+    rows_per_step = STREAM_SPEC["num_nodes"] * STREAM_SPEC["local_batch"]
+    args = ltrain.build_parser().parse_args(["train", "--arch", arch, "--steps", str(steps)])
+    opt, step = ltrain.make_step(cfg, args)
+    state = {"s": init_train_state(lm.flat_params(lm.init_lm(cfg, seed=ltrain.SEED,
+                                                             device="cuda")), opt)}
+    make_batch = ltrain.make_batch_fn(cfg, STREAM_SPEC["local_batch"])
+    stage = PinnedBatchStager(torch.device("cuda"))
+    timed, last = [], {}
+
+    def on_batch(sb):
+        batch = make_batch(sb)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state["s"], m = step(state["s"], stage(batch))
+        loss, tokens = float(m["loss"]), float(m["tokens"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        timed.append({"window": sb.epoch, "step": sb.step, "loss": loss, "tokens": tokens,
+                      "rows": float(batch["weights"].sum()),
+                      "compute_ms": (t1 - t0) * 1e3,
+                      "wall_ms": (t1 - last["t"]) * 1e3 if last else None})
+        last["t"] = t1
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_stream_") as tmp:
+        spec = LoaderSpec(loader="stream", backend="memory", path=f"{tmp}/tokens",
+                          collect_data=True, **STREAM_SPEC,
+                          stream=StreamSpec(**STREAM_WINDOWS))
+        store = build_store(spec, create=True,
+                            dataset=DatasetSpec(STREAM_ROWS, (seq + 1,), "<i4"),
+                            fill="zeros")
+        session = IngestSession(store, **STREAM_INGEST)
+        producer = threading.Thread(
+            target=run_producers, args=(session, range(STREAM_ROWS)),
+            kwargs=STREAM_PRODUCERS, name="chip-smoke-producers", daemon=True)
+        try:
+            producer.start()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            # The main path: counts set to 0 just before, read just after
+            # (verify's re-execution of the offline replan runs no model).
+            reset_counts()
+            report = run_stream(spec.replace(store=store, path=None), session,
+                                overlap=True, verify=True, on_batch=on_batch)
+            counts = read_counts()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        finally:
+            # a producer blocked on put() must not outlive the phase
+            session.close()
+            producer.join(timeout=30.0)
+            store.close()
+        if producer.is_alive():
+            raise AssertionError("a stream producer outlived its closed session")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli_rows = _stream_clis(tmp)
+
+    want = {k: v * steps for k, v in expected_train_counts(cfg, cfg.grad_accum).items()}
+    summary = report.summary()
+    later = timed[1:]
+    row = {
+        "run": "main", "arch": arch, "layers": cfg.num_layers,
+        "param_dtype": cfg.param_dtype, "params": cfg.num_params(), "seq_len": seq,
+        "rows_per_step": rows_per_step, "grad_accum": cfg.grad_accum,
+        "store_rows": STREAM_ROWS, "stream": STREAM_WINDOWS, "ingest_config": STREAM_INGEST,
+        "producers": STREAM_PRODUCERS, "prefetch_depth": STREAM_SPEC["prefetch_depth"],
+        "steps": report.steps, "windows": report.windows, "wall_s": report.wall_s,
+        "bootstrap_s": report.bootstrap_s,
+        "blocked_on_planning_s": report.blocked_on_planning_s, "plan_s": report.plan_s,
+        "window_meta": report.window_meta, "timed_steps": timed,
+        "compute_ms_per_step": statistics.mean(s_["compute_ms"] for s_ in later),
+        "wall_ms_per_step": statistics.mean(s_["wall_ms"] for s_ in later),
+        "tokens_per_s": sum(s_["tokens"] for s_ in later)
+        / (sum(s_["wall_ms"] for s_ in later) / 1e3),
+        "ingest": summary["ingest"], "loader": summary["loader"],
+        "verify": report.verify, "peak_device_gib": peak,
+        "launches": counts, "expected_launches": want,
+    }
+    for s_ in timed:
+        log(f"[stream_train] {arch} window {s_['window']} step {s_['step']}: loss "
+            f"{s_['loss']:.4f}, {s_['tokens']:.0f} tokens over {s_['rows']:.0f} rows, "
+            f"compute {s_['compute_ms']:.1f} ms, wall {s_['wall_ms'] or 0:.1f} ms")
+    log(f"[stream_train] {arch}: {json.dumps(row)}")
+    if not report.ok:
+        raise AssertionError(f"stream parity with the offline replan failed: {report.verify}")
+    if (report.windows, report.steps, len(timed)) != (STREAM_WINDOWS["max_windows"], steps,
+                                                      steps):
+        raise AssertionError(f"{report.windows} windows, {report.steps} steps, "
+                             f"{len(timed)} trained")
+    if counts != want:
+        raise AssertionError(f"{arch} stream: launches {counts}, want {want}")
+    if not all(math.isfinite(s_["loss"]) for s_ in timed):
+        raise AssertionError(f"{arch} stream: a loss that is not finite")
+    if any(s_["rows"] != rows_per_step or s_["tokens"] != rows_per_step * seq
+           for s_ in timed):
+        raise AssertionError(f"{arch} stream: a step weighed other than "
+                             f"{rows_per_step} rows of {seq} labels")
+    for r in cli_rows:
+        parity = "rank_parity" if r["run"] == "cli distributed" else "stream_parity"
+        if not (r["verify"]["plan_parity"] and r["verify"][parity]):
+            raise AssertionError(f"stream CLI parity failed: {r}")
+    launches = {name: {f"{arch} stream_train": n} for name, n in counts.items()}
+    return [row] + cli_rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2783,6 +2973,10 @@ def main() -> int:
         done("lm_train")
         for name, by_path in lm_launches.items():
             launches[name].update(by_path)
+        stream_rows, stream_launches = phase_stream_train()
+        done("stream_train")
+        for name, by_path in stream_launches.items():
+            launches[name].update(by_path)
         rows = phase_report(launches, worst, worst_bwd, library_device_ms)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
@@ -2793,6 +2987,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_rows}), flush=True)
     print(json.dumps({"tier_serve": tier_rows}), flush=True)
     print(json.dumps({"dist_tier_serve": dist_rows}), flush=True)
+    print(json.dumps({"stream_train": stream_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

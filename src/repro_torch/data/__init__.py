@@ -15,8 +15,8 @@ or, with the plan made explicit (precompute once, execute many)::
     schedule = plan(spec)              # -> repro_torch.core.plan.Schedule artifact
     pipeline = execute(spec, schedule)
 
-Own copy of ``repro.data``: streaming specs raise
-:class:`NotImplementedError` (ROADMAP.md Queue 1 item 2).
+Own copy of ``repro.data``; streaming specs (``loader="stream"``,
+:class:`StreamSpec`) are driven by :mod:`repro_torch.stream`.
 """
 from repro_torch.core.planners import PLANNERS, STRATEGIES, PlanCache
 from repro_torch.data.backends import (
@@ -42,6 +42,7 @@ from repro_torch.data.peer import (
 )
 from repro_torch.data.pipeline import (
     LoaderSpec,
+    StreamSpec,
     build_pipeline,
     build_store,
     execute,
@@ -57,6 +58,7 @@ __all__ = [
     "DatasetSpec",
     "LoaderSpec",
     "StorageBackend",
+    "StreamSpec",
     "backend_names",
     "build_pipeline",
     "build_store",

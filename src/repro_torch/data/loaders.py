@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import threading
 import time
 
 import numpy as np
@@ -279,6 +280,11 @@ class ScheduleExecutor:
         self.collect_data = collect_data
         self.cost = cost_model or PFSCostModel(sample_bytes=store.sample_bytes)
         self.solar_config = solar_config
+        #: streaming mode (DESIGN.md §10): while open, a plan walk that runs
+        #: out of epochs waits for extend() instead of finishing.
+        self._stream_cond = threading.Condition()
+        self._stream_open = False
+        self.stream_timeout_s = 60.0
         if serve_peers is None:
             serve_peers = peer_transport is not None or bool(
                 solar_config is not None and solar_config.enable_peer
@@ -361,19 +367,101 @@ class ScheduleExecutor:
             ordered.sort()
             self._mirror(r).admit(ordered, self.store.read_scattered(ordered))
 
+    def begin_stream(self) -> None:
+        """Enter streaming mode: plan walks block at the end of the schedule
+        (waiting for :meth:`extend`) instead of finishing."""
+        with self._stream_cond:
+            self._stream_open = True
+
+    def finish_stream(self) -> None:
+        """Leave streaming mode: blocked walks drain and finish normally."""
+        with self._stream_cond:
+            self._stream_open = False
+            self._stream_cond.notify_all()
+
+    def extend(self, schedule: Schedule) -> None:
+        """Chain another plan segment onto the live schedule, no teardown.
+
+        The appended segment must match the running schedule's geometry and
+        strategy; its epochs join the walk in order.  Safe to call from a
+        different thread than the one iterating (the streaming driver plans
+        window ``k+1`` while the executor replays window ``k``): the epoch
+        list is only appended to, and walks pick up appended epochs under
+        the stream condition.
+        """
+        for field in ("num_nodes", "local_batch", "capacity", "buffer_size",
+                      "strategy"):
+            if getattr(schedule, field) != getattr(self.schedule, field):
+                raise ValueError(
+                    f"extend(): segment {field} "
+                    f"{getattr(schedule, field)!r} != running "
+                    f"{getattr(self.schedule, field)!r}"
+                )
+        with self._stream_cond:
+            self.schedule.epochs.extend(schedule.epochs)
+            self.schedule.epoch_order = np.concatenate(
+                [
+                    np.asarray(self.schedule.epoch_order, np.int64),
+                    np.asarray(schedule.epoch_order, np.int64),
+                ]
+            )
+            self.num_epochs = len(self.schedule.epochs)
+            self._stream_cond.notify_all()
+
+    def stream_steps_ready(self) -> int | None:
+        """Yieldable plan steps currently materialized, or None when not in
+        streaming mode (non-streaming walks never block).
+
+        The prefetch pipeline probes this before pulling another step for
+        its read-ahead window: when the walk would block waiting for the
+        next ``extend()``, the pipeline assembles the steps it already holds
+        instead of stalling the whole pipe at a window boundary.
+        """
+        with self._stream_cond:
+            if not self._stream_open:
+                return None
+            total = sum(len(ep.steps) for ep in self.schedule.epochs)
+            return max(total - self._start_step, 0)
+
+    def _next_epoch(self, ei: int):
+        """Epoch ``ei``, or None past the end — waiting in streaming mode."""
+        with self._stream_cond:
+            if ei < len(self.schedule.epochs):
+                return self.schedule.epochs[ei]
+            if not self._stream_open:
+                return None
+            deadline = time.monotonic() + self.stream_timeout_s
+            while ei >= len(self.schedule.epochs) and self._stream_open:
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"streaming walk waited > {self.stream_timeout_s}s "
+                        f"for window {ei} (extend() never arrived)"
+                    )
+                self._stream_cond.wait(0.05)
+            if ei < len(self.schedule.epochs):
+                return self.schedule.epochs[ei]
+            return None  # stream finished while waiting
+
     def plan_steps(self):
         """Walk the schedule in execution order, yielding (EpochPlan, StepPlan).
 
         This is the surface the :class:`repro_torch.data.prefetch.PrefetchExecutor`
         pipelines over: every future ChunkRead is visible here.  Each walk
         replays the buffer simulation from an empty buffer, honoring
-        :meth:`fast_forward`.
+        :meth:`fast_forward`.  The walk is index-based so epochs appended by
+        :meth:`extend` mid-walk are picked up; in streaming mode it blocks
+        at the end of the schedule until the next window or
+        :meth:`finish_stream`.
         """
         self.reset_execution()
         idx = 0
         resident: list[set] = [set() for _ in range(self.num_nodes)]
         staged = self._start_step == 0
-        for ep in self.schedule.epochs:
+        ei = 0
+        while True:
+            ep = self._next_epoch(ei)
+            if ep is None:
+                return
             for sp in ep.steps:
                 if idx < self._start_step:
                     self._skip_step(sp, resident)
@@ -385,6 +473,7 @@ class ScheduleExecutor:
                         self._restage_buffers(resident)
                 idx += 1
                 yield ep, sp
+            ei += 1
 
     def __iter__(self):
         for ep, sp in self.plan_steps():

@@ -21,7 +21,7 @@ lives: ``spec.plan_cache`` memoizes schedules on disk keyed by the
 planner's config hash (:class:`~repro_torch.core.planners.PlanCache`),
 ``spec.plan_path`` pins one explicit artifact (loaded when present, built
 and saved when not), and a standalone ``plan(spec, num_samples=...)`` can
-precompute artifacts with no dataset in sight.
+precompute artifacts with no dataset in sight (``repro_torch.launch.train plan``).
 
 ``execute`` refuses schedules whose geometry or recorded ``config_hash``
 contradicts the spec — replaying a plan built for a different run fails
@@ -32,8 +32,9 @@ When the spec names a ``path``, the backend is opened (or, for
 :mod:`repro_torch.data.backends`; a pre-opened ``store`` short-circuits that and
 is used as-is (``path`` and ``store`` are mutually exclusive on the spec).
 
-Streaming specs (``loader="stream"``, :class:`StreamSpec`) raise
-:class:`NotImplementedError`: ROADMAP.md Queue 1 item 2 ports them.  A
+Streaming specs (``loader="stream"``, :class:`StreamSpec`) have no offline
+planner: :mod:`repro_torch.stream` compiles them window by window as
+manifests seal and chains the segments onto a live executor.  A
 ``transport="socket"`` spec executes against a live
 :class:`~repro_torch.data.peer.SocketTransport` passed to :func:`execute`;
 :func:`repro_torch.runtime.run_distributed` wires one per rank.
@@ -49,13 +50,7 @@ from repro_torch.core.plan import Schedule
 from repro_torch.core.planners import PLANNERS, PlanCache, Planner, SolarPlanner
 from repro_torch.core.scheduler import SolarConfig
 from repro_torch.data.backends.base import backend_names, create_store, open_store
-
-#: the streaming strategy's loader name, refused by this copy.
-STREAM_STRATEGY = "stream"
-_STREAM_NOT_PORTED = (
-    "streaming ingestion (loader='stream', StreamSpec) is not ported yet: "
-    "ROADMAP.md Queue 1 item 2"
-)
+from repro_torch.stream.windows import STREAM_STRATEGY, StreamSpec, WindowPlanner
 
 __all__ = [
     "LoaderSpec",
@@ -66,13 +61,6 @@ __all__ = [
     "build_store",
     "make_planner",
 ]
-
-
-class StreamSpec:
-    """Placeholder for the streaming-ingestion knobs; not ported yet."""
-
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_STREAM_NOT_PORTED)
 
 
 @dataclasses.dataclass
@@ -130,23 +118,39 @@ class LoaderSpec:
     #: explicit plan-artifact path: loaded (and hash-verified) when present,
     #: built and saved there when not.  Mutually exclusive with ``plan_cache``.
     plan_path: str | None = None
-    #: streaming-ingestion knobs (DESIGN.md §10); not ported yet, so any
-    #: value but None raises :class:`NotImplementedError`.
-    stream: Any = None
+    #: streaming-ingestion knobs (DESIGN.md §10); required iff
+    #: ``loader="stream"``.  Stream specs compile plans incrementally per
+    #: sealed window (:mod:`repro_torch.stream`), so offline ``plan()`` and the
+    #: plan cache/artifact paths do not apply to them.
+    stream: StreamSpec | None = None
 
     def replace(self, **changes) -> "LoaderSpec":
         return dataclasses.replace(self, **changes)
 
     def validate(self) -> "LoaderSpec":
-        """Raise one ``ValueError`` naming every inconsistency in the spec
-        (``NotImplementedError`` for the streaming path)."""
-        if self.loader == STREAM_STRATEGY or self.stream is not None:
-            raise NotImplementedError(_STREAM_NOT_PORTED)
+        """Raise one ``ValueError`` naming every inconsistency in the spec."""
         errs = []
-        if self.loader not in PLANNERS:
+        if self.loader not in PLANNERS and self.loader != STREAM_STRATEGY:
             errs.append(
-                f"unknown loader {self.loader!r}; have {sorted(PLANNERS)}"
+                f"unknown loader {self.loader!r}; have "
+                f"{sorted(PLANNERS) + [STREAM_STRATEGY]}"
             )
+        if self.loader == STREAM_STRATEGY and self.stream is None:
+            errs.append(
+                "loader='stream' needs stream=StreamSpec(...) on the spec"
+            )
+        if self.stream is not None:
+            if self.loader != STREAM_STRATEGY:
+                errs.append(
+                    f"stream=StreamSpec(...) requires loader='stream', "
+                    f"got loader={self.loader!r}"
+                )
+            errs.extend(self.stream.validate())
+            if self.plan_cache is not None or self.plan_path is not None:
+                errs.append(
+                    "streaming specs compile plans incrementally per sealed "
+                    "window — 'plan_cache'/'plan_path' do not apply"
+                )
         if self.store is None:
             if self.path is None:
                 errs.append("one of 'path' or 'store' is required")
@@ -292,7 +296,11 @@ def make_planner(spec: LoaderSpec, *, sample_bytes: int | None = None) -> Planne
     explicit one — planning is otherwise dataset-content-free.
     """
     if spec.loader == STREAM_STRATEGY:
-        raise NotImplementedError(_STREAM_NOT_PORTED)
+        raise ValueError(
+            "stream specs have no offline planner: windows are compiled "
+            "incrementally by repro_torch.stream.WindowPlanner as manifests seal "
+            "(drive them with repro_torch.stream.run_stream / run_stream_distributed)"
+        )
     if spec.loader == "solar":
         cfg = spec.solar
         if cfg is None:
@@ -398,10 +406,9 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
     (executors never own their store — several pipelines may share one).
 
     ``peer_transport`` injects a live :class:`~repro_torch.data.peer.PeerTransport`
-    (a rank's :class:`~repro_torch.data.peer.SocketTransport` in
-    multi-process runs); specs asking for ``transport="socket"`` *require*
-    it — the sockets only exist inside
-    :func:`repro_torch.runtime.run_distributed`.
+    (a rank's :class:`~repro_torch.data.peer.SocketTransport` in multi-process
+    runs); specs asking for ``transport="socket"`` *require* it — the
+    sockets only exist inside :func:`repro_torch.runtime.run_distributed`.
 
     The schedule must match the spec: strategy, geometry, epoch count, and —
     when the schedule records one — the planner's config hash.
@@ -419,17 +426,28 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
     opened_here = spec.store is None
     st = spec.store if spec.store is not None else build_store(spec)
     try:
-        planner = make_planner(spec, sample_bytes=st.sample_bytes)
-        _check_schedule(spec, schedule, planner, st.num_samples)
+        solar_config = None
+        serve_peers = None
+        if spec.loader == STREAM_STRATEGY:
+            # No offline planner: the schedule is the first window segment
+            # (later ones arrive via executor.extend()); provenance is the
+            # WindowPlanner's config hash instead of a planner cache key.
+            _check_stream_schedule(spec, schedule)
+            serve_peers = spec.stream.peer_fetch or peer_transport is not None
+        else:
+            planner = make_planner(spec, sample_bytes=st.sample_bytes)
+            _check_schedule(spec, schedule, planner, st.num_samples)
+            solar_config = (
+                planner.config if isinstance(planner, SolarPlanner) else None
+            )
         executor = ScheduleExecutor(
             st,
             schedule,
             collect_data=spec.collect_data,
             cost_model=spec.cost_model,
-            solar_config=(
-                planner.config if isinstance(planner, SolarPlanner) else None
-            ),
+            solar_config=solar_config,
             peer_transport=peer_transport,
+            serve_peers=serve_peers,
         )
     except BaseException:
         if opened_here:  # never leak a handle the caller cannot reach
@@ -442,6 +460,31 @@ def execute(spec: LoaderSpec, schedule: Schedule, *, store=None,
             executor, depth=spec.prefetch_depth, num_workers=spec.num_workers
         )
     return executor
+
+
+def _check_stream_schedule(spec: LoaderSpec, schedule: Schedule) -> None:
+    errs = []
+    if schedule.strategy != STREAM_STRATEGY:
+        errs.append(
+            f"schedule was planned by {schedule.strategy!r}, stream specs "
+            f"replay {STREAM_STRATEGY!r} segments"
+        )
+    for field in ("num_nodes", "local_batch", "buffer_size"):
+        if getattr(schedule, field) != getattr(spec, field):
+            errs.append(
+                f"schedule {field}={getattr(schedule, field)} contradicts "
+                f"spec {field}={getattr(spec, field)}"
+            )
+    if schedule.config_hash:
+        key = WindowPlanner.for_spec(spec).config_hash()
+        if schedule.config_hash != key:
+            errs.append(
+                f"window config hash {schedule.config_hash} != the spec's "
+                f"{key} — the segment was planned under a different "
+                "streaming config"
+            )
+    if errs:
+        raise ValueError("schedule does not match spec: " + "; ".join(errs))
 
 
 def _check_schedule(

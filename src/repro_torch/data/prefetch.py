@@ -259,13 +259,25 @@ class PrefetchExecutor:
         collect = ld.collect_data
         gather_peers = getattr(ld, "gather_peers", None)
         steps = iter(ld.plan_steps())
+        steps_ready = getattr(ld, "stream_steps_ready", None)
+        pulled = 0
         #: (EpochPlan, StepPlan, per-node futures) issued but not yet assembled.
         pending: deque = deque()
         exhausted = False
         while not run.cancel.is_set():
             while not exhausted and len(pending) < self.depth:
+                if pending and steps_ready is not None:
+                    avail = steps_ready()
+                    if avail is not None and pulled >= avail:
+                        # Streaming walk would block waiting for the next
+                        # extend(): assemble what we hold instead of stalling
+                        # the whole pipe at the window boundary.  With
+                        # nothing pending we do block here — the consumer is
+                        # necessarily ahead and free to extend.
+                        break
                 try:
                     ep, sp = next(steps)
+                    pulled += 1
                 except StopIteration:
                     exhausted = True
                     break

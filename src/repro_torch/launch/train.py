@@ -17,6 +17,10 @@ model's training step, with checkpoints; and plan artifacts without training.
     PYTHONPATH=src python -m repro_torch.launch.train distributed --nodes 2 \
         --peer-fetch --num-samples 2048 --epochs 2 --verify
 
+    # streaming ingestion: producers ingest while sealed windows replay
+    PYTHONPATH=src python -m repro_torch.launch.train stream --nodes 2 \
+        --num-samples 2048 --window-steps 8 --watermark 32 --verify
+
 The counterpart of the JAX package's ``launch/train.py`` (``run_train``,
 ``run_plan``) for every family, built on the port's own ``core`` and
 ``data`` copies.  A synthetic token store (int32 rows of ``seq_len + 1``,
@@ -31,9 +35,11 @@ rest).  Runs on the card unless ``--device cpu`` is given; there,
 attention, the selective scan and RMSNorm go through the hand-written
 kernels, forward and backward.  ``distributed`` (``run_distributed_cmd``,
 the JAX launcher's subcommand of the same name) runs the data pipeline
-only, as N numpy-only rank processes; the models and torch are imported by
-``train`` alone.  The ``stream`` subcommand (streaming ingestion) is not
-ported yet.  Every subcommand takes ``-v``/``-q``.
+only, as N numpy-only rank processes; ``stream`` (``run_stream_cmd``)
+streams synthetic rows through seeded admission into sealed plan windows,
+in this process or (``--distributed``) across numpy-only rank processes,
+with no model; the models and torch are imported by ``train`` alone.
+Every subcommand takes ``-v``/``-q``.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ from repro_torch.data import (
 from repro_torch.obs import log as obs_log
 
 __all__ = ["build_parser", "loader_spec", "make_batch_fn", "make_step", "train",
-           "run_plan", "run_distributed_cmd", "main"]
+           "run_plan", "run_distributed_cmd", "run_stream_cmd", "main"]
 
 #: The initial parameters' seed (the JAX launcher's PRNGKey(0)).
 SEED = 0
@@ -140,9 +146,11 @@ def build_parser() -> argparse.ArgumentParser:
         "distributed",
         help="execute one plan as N rank processes over the socket peer "
              "transport (data pipeline only, no model training)"))
-    stream = sub.add_parser(
-        "stream", help="not ported yet (ROADMAP.md Queue 1, item 2)")
-    obs_log.add_verbosity_args(stream)
+    _add_stream_args(sub.add_parser(
+        "stream",
+        help="streaming ingestion: synthetic producers write rows under "
+             "seeded admission while sealed windows are planned and "
+             "replayed (data pipeline only, no model training)"))
     return ap
 
 
@@ -356,6 +364,139 @@ def run_distributed_cmd(args) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# stream
+# ---------------------------------------------------------------------------
+
+
+def _add_stream_args(ap: argparse.ArgumentParser) -> None:
+    from repro_torch.stream import ADMISSION_POLICIES
+
+    ap.add_argument("--nodes", type=int, default=2)
+    ap.add_argument("--local-batch", type=int, default=8)
+    ap.add_argument("--buffer", type=int, default=256)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--num-samples", type=int, default=2048,
+                    help="id space of the stream (store rows; producers "
+                         "emit each id once)")
+    ap.add_argument("--backend", default="sharded",
+                    choices=("memory", "sharded"),
+                    help="writable backend holding the stream (distributed "
+                         "runs require 'sharded': ranks read the rows the "
+                         "parent's ingest writes)")
+    ap.add_argument("--data", default=None,
+                    help="store path (default: solar_stream_torch.<backend> "
+                         "in the temporary directory)")
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--window-steps", type=int, default=8,
+                    help="training steps per plan window")
+    ap.add_argument("--watermark", type=int, default=16,
+                    help="fresh admissions a seal waits for before the next "
+                         "window is planned")
+    ap.add_argument("--admission", default="reservoir",
+                    choices=ADMISSION_POLICIES,
+                    help="seeded admission policy for arriving samples")
+    ap.add_argument("--reservoir", type=int, default=None,
+                    help="admitted-set bound for reservoir/latest policies "
+                         "(default: unbounded)")
+    ap.add_argument("--max-windows", type=int, default=None,
+                    help="stop after this many windows (default: run until "
+                         "producers finish with nothing fresh)")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="aggregate producer arrival rate in samples/s "
+                         "(default: unthrottled)")
+    ap.add_argument("--producer-threads", type=int, default=2)
+    ap.add_argument("--prefetch-depth", type=int, default=0,
+                    help="pipeline read-ahead in steps; distributed ranks "
+                         "run it as async prefetch inside their stream "
+                         "windows (digests stay depth-invariant)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="execute as --nodes rank processes: each sealed "
+                         "window's plan is broadcast by content hash and "
+                         "ranks cut over at the same step boundary")
+    ap.add_argument("--stop-the-world", action="store_true",
+                    help="plan each window synchronously at the boundary "
+                         "instead of overlapping planning with training "
+                         "(the baseline of blocked_on_planning_s)")
+    ap.add_argument("--verify", action="store_true",
+                    help="assert the streaming determinism contract: the "
+                         "concatenated window plans and the executed batch "
+                         "stream match a one-shot offline replan (and, "
+                         "distributed, every rank's slice digest matches "
+                         "the in-process reference)")
+    ap.add_argument("--timeout", type=float, default=300.0)
+    obs_log.add_verbosity_args(ap)
+
+
+def run_stream_cmd(args) -> dict:
+    """Stream ``--num-samples`` synthetic rows from producer threads into a
+    writable store and replay the sealed windows, in this process or as
+    ``--nodes`` rank processes; print and return the run's ``summary()``.
+    Exits non-zero on a dead rank or, under ``--verify``, when the live
+    windows diverge from the one-shot offline replan."""
+    import threading
+
+    from repro_torch.stream import (
+        IngestSession,
+        StreamSpec,
+        run_producers,
+        run_stream,
+    )
+    from repro_torch.stream.distributed import run_stream_distributed
+
+    if args.data is None:
+        args.data = os.path.join(tempfile.gettempdir(),
+                                 f"solar_stream_torch.{args.backend}")
+    if args.distributed and args.backend != "sharded":
+        raise SystemExit(
+            "stream --distributed requires --backend sharded (ranks must "
+            "see the parent's row writes; 'memory' stages at open)")
+    spec = LoaderSpec(
+        loader="stream", backend=args.backend, path=args.data,
+        num_nodes=args.nodes, local_batch=args.local_batch,
+        buffer_size=args.buffer, seed=args.seed, collect_data=True,
+        prefetch_depth=max(args.prefetch_depth, 0),
+        stream=StreamSpec(
+            window_steps=args.window_steps, admission=args.admission,
+            watermark=args.watermark, reservoir_size=args.reservoir,
+            max_windows=args.max_windows,
+        ),
+    )
+    store = build_store(
+        spec, create=True,
+        dataset=DatasetSpec(args.num_samples, (args.seq_len + 1,), "<i4", num_shards=4),
+        fill="zeros",
+    )
+    try:
+        session = IngestSession(store, seed=args.seed, admission=args.admission,
+                                reservoir_size=args.reservoir)
+        producer = threading.Thread(
+            target=run_producers, args=(session, range(args.num_samples)),
+            kwargs=dict(threads=args.producer_threads, data_seed=args.seed,
+                        rate_hz=args.rate),
+            name="stream-producers", daemon=True,
+        )
+        producer.start()
+        if args.distributed:
+            report = run_stream_distributed(spec, session, verify=args.verify,
+                                            timeout_s=args.timeout)
+        else:
+            report = run_stream(spec.replace(store=store, path=None), session,
+                                overlap=not args.stop_the_world, verify=args.verify)
+        producer.join(timeout=30.0)
+        out = report.summary()
+        print(json.dumps(out, indent=1))
+        if args.distributed and report.dead:
+            raise SystemExit(f"ranks {report.dead} died during the stream")
+        if args.verify and not report.ok:
+            raise SystemExit(
+                "streaming determinism violated: the live window plans or "
+                "batches diverged from the one-shot offline replan")
+    finally:
+        store.close()
+    return out
+
+
+# ---------------------------------------------------------------------------
 # train
 # ---------------------------------------------------------------------------
 
@@ -473,9 +614,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     obs_log.configure(obs_log.verbosity_from(args))
     if args.cmd == "stream":
-        raise NotImplementedError(
-            "the 'stream' subcommand needs streaming ingestion, which is not "
-            "ported yet (ROADMAP.md Queue 1, item 2)")
+        return run_stream_cmd(args)
     if args.cmd == "plan":
         return run_plan(args)
     if args.cmd == "distributed":

@@ -168,16 +168,20 @@ def test_store_reads_back_bit_for_bit_in_the_other_package(tmp_path, backend, wr
 
 
 def test_streaming_and_socket_paths_raise_not_implemented(stores):
-    """The streaming path, not ported yet, raises (the socket path's own
-    test follows)."""
-    _, t_store = stores["binary"]
-    geo = GEOMETRIES["A"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.LoaderSpec(loader="stream", store=t_store, **geo).validate()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.pipeline.StreamSpec()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.make_planner(tdata.LoaderSpec(loader="stream", store=t_store, **geo))
+    """The streaming path is ported (``tests/test_torch_stream.py``): a
+    stream spec validates, ``StreamSpec()`` constructs, and ``make_planner``
+    refuses a stream spec with the JAX package's ``ValueError`` (windows are
+    planned as manifests seal); nothing raises ``NotImplementedError``.
+    The socket path's own test follows."""
+    r_store, t_store = stores["binary"]
+    geo = {k: v for k, v in GEOMETRIES["A"].items() if k != "num_epochs"}
+    assert tdata.StreamSpec() == tdata.pipeline.StreamSpec()
+    for pkg, store, stream_spec in ((tdata, t_store, tdata.StreamSpec),
+                                    (rdata, r_store, rdata.pipeline.StreamSpec)):
+        spec = pkg.LoaderSpec(loader="stream", store=store, stream=stream_spec(), **geo)
+        spec.validate()
+        with pytest.raises(ValueError, match="no offline planner"):
+            pkg.make_planner(spec)
 
 
 def test_socket_path_needs_a_live_transport_as_in_the_jax_package(stores):

@@ -56,7 +56,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.runtime.server", "repro_torch.serve.datatier",
                  "repro_torch.runtime.launcher", "repro_torch.obs.log",
                  "repro_torch.obs.metrics", "repro_torch.obs.report",
-                 "repro_torch.serve.tenant_load"):
+                 "repro_torch.serve.tenant_load", "repro_torch.stream",
+                 "repro_torch.stream.ingest", "repro_torch.stream.windows",
+                 "repro_torch.stream.driver", "repro_torch.stream.distributed"):
         assert name in report["imported"]
 
 
@@ -65,15 +67,17 @@ import json, sys
 import repro_torch.runtime.launcher, repro_torch.data.pipeline
 import repro_torch.serve.datatier, repro_torch.obs.report
 import repro_torch.serve.tenant_load
+import repro_torch.stream.distributed, repro_torch.launch.train
 print(json.dumps(sorted(m for m in sys.modules
                         if m.split(".")[0] in ("torch", "jax", "jaxlib", "repro"))))
 """
 
 
 def test_launcher_ranks_import_no_torch():
-    """What a launcher rank (and a tenant load process) imports — the
-    launcher, the loader, the data tier, obs — pulls in neither torch nor
-    JAX nor the JAX package: the ranks hold no tensors."""
+    """What a launcher rank, a streaming rank, the ``stream`` and
+    ``distributed`` CLI and a tenant load process import — the launcher,
+    the loader, the data tier, obs, the stream driver and ranks — pulls in
+    neither torch nor JAX nor the JAX package: the ranks hold no tensors."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     res = subprocess.run([sys.executable, "-c", _RANK_PROBE], env=env, text=True,
                          capture_output=True, timeout=120, check=True)

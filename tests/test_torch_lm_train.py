@@ -384,11 +384,16 @@ def _untimed(summary):
 
 @pytest.mark.dist
 def test_launcher_refuses_the_subcommands_of_a_later_slice(tmp_path, capsys):
-    """``stream`` waits for streaming ingestion (ROADMAP Queue 1 item 2).
-    ``distributed`` is ported: with ``--verify`` it exits cleanly and prints
-    what the JAX launcher prints for the same flags, less times."""
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        ttrain.main(["stream"])
+    """The subcommands of the later slices are ported and refuse nothing:
+    ``stream --verify`` runs with its parities true (its summaries against
+    the JAX CLI's: ``tests/test_torch_stream.py``), and ``distributed`` with
+    ``--verify`` exits cleanly and prints what the JAX launcher prints for
+    the same flags, less times."""
+    stream = ttrain.main(["stream", "--nodes", "2", "--num-samples", "256",
+                          "--window-steps", "4", "--watermark", "32", "--verify",
+                          "--data", str(tmp_path / "stream")])
+    assert json.loads(capsys.readouterr().out) == stream
+    assert stream["verify"]["plan_parity"] and stream["verify"]["stream_parity"]
     argv = ["distributed", "--nodes", "2", "--peer-fetch", "--num-samples", "512",
             "--local-batch", "16", "--buffer", "128", "--epochs", "2", "--verify"]
     port = ttrain.main(argv + ["--data", str(tmp_path / "port.bin")])
