@@ -126,6 +126,25 @@ Phases, all run in order, each of which must pass:
                train stream --verify`` in three child processes (overlapped,
                ``--stop-the-world``, ``--distributed``), each of which must
                exit 0.  Prints a ``{"stream_train": [...]}`` line;
+     sharded — in a spawned child process owning a one-rank NCCL group and
+               its (1, 1) ``("data", "model")`` mesh (``make_local_mesh``):
+               hymba-1.5b at full width and depth, bf16, on ``lm_train``'s
+               planned batches (2 nodes x capacity 8, grad_accum 8), 2 steps
+               with params and moments as DTensors against 2
+               plain steps from the same init (losses and every param leaf
+               equal bit for bit, launches 2 x ``expected_train_counts``
+               each); the sharded state checkpointed whole, restored with
+               ``shardings=`` and stepped once more, equal to the step
+               without the round trip; ``compressed_psum`` of one
+               microbatch's gradient of ``layers.ssm.in_proj`` equal to
+               ``quantize_dequantize``; minitron-8b at full width and depth
+               serving batch 4, prompt 512, 32 tokens with its 8 kv heads
+               repeated to 16 (``model_axis`` 16) and as they are: greedy
+               tokens, prefill logits (the cache layout leaves prefill as
+               it was) and decode logits (each query head reads its kv
+               head among the repeated ones) equal bit for bit, launches
+               exact, prefill and decode timed in alternating turns.  Prints a ``{"sharded": [...]}``
+               line;
   7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
@@ -156,6 +175,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -417,6 +437,18 @@ STREAM_CLI = ["stream", "--nodes", "2", "--num-samples", "2048", "--window-steps
 STREAM_CLI_MODES = {"overlap": [], "stop_the_world": ["--stop-the-world"],
                     "distributed": ["--distributed"]}
 STREAM_CLI_TIMEOUT_S = 300
+# Sharding: hymba-1.5b whole (bf16, launch.train's init and AdamW) on
+# lm_train's batches (2 nodes x capacity 8 of 2048 tokens, grad_accum 8), 2
+# steps on a (1, 1) NCCL mesh and 2 plain ones, then a third after a
+# checkpoint round trip; compressed_psum over one gradient leaf; minitron-8b
+# whole (nvidia/Minitron-8B-Base) serving batch 4, prompt 512, 32 new tokens
+# with its 8 kv heads repeated to 16 and as they are.
+SHARDED_TRAIN = ("hymba-1.5b", 2048)
+SHARDED_STEPS = 2
+SHARDED_PSUM_LEAF = "layers.ssm.in_proj"
+SHARDED_SERVE = ("minitron-8b", 4, 512, 32)
+SHARDED_MODEL_AXES = (16, 1)
+SHARDED_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -2925,6 +2957,386 @@ def phase_stream_train() -> tuple[list, dict]:
     return [row] + cli_rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Sharding: the sharded train step, compressed_psum, the elastic restore and
+# repeated-head serving, in a child process that owns the NCCL group
+# ---------------------------------------------------------------------------
+
+
+def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit (NaN patterns included)."""
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _whole_params(state) -> dict:
+    """Copies of the state's params, whole, on the card."""
+    return {k: (p.full_tensor() if type(p).__name__ == "DTensor" else p).clone()
+            for k, p in state["params"].items()}
+
+
+def _params_diff(got: dict, want: dict) -> tuple[bool, float]:
+    """(every leaf equal bit for bit, the largest |difference|)."""
+    same = all(_bitwise(got[k], want[k]) for k in want)
+    worst = max(float((got[k].float() - want[k].float()).abs().max()) for k in want)
+    return same, worst
+
+
+def _sharded_batches(cfg, tmp: str, steps: int) -> tuple:
+    """(the launcher's args, ``steps`` planned global batches of
+    ``lm_train``'s pipeline on the card: 2 SOLAR nodes, capacity 8,
+    zero-weight padding rows)."""
+    from repro_torch.data import DatasetSpec, build_pipeline, build_store
+    from repro_torch.launch import train as ltrain
+
+    arch, seq = SHARDED_TRAIN
+    args = ltrain.build_parser().parse_args(
+        ["train", "--arch", arch, "--seq-len", str(seq), *LM_TRAIN_ARGS,
+         "--steps", str(steps), "--data", f"{tmp}/{arch}.bin"])
+    spec = ltrain.loader_spec(args)
+    store = build_store(spec, create=True,
+                        dataset=DatasetSpec(args.num_samples, (seq + 1,), "<i4"),
+                        fill="random")
+    try:
+        loader = build_pipeline(spec, store=store)
+        make_batch = ltrain.make_batch_fn(cfg, loader.capacity)
+        out = []
+        for sb in loader:
+            out.append({k: torch.from_numpy(v).cuda() for k, v in make_batch(sb).items()})
+            if len(out) == steps:
+                break
+    finally:
+        store.close()
+    return args, out
+
+
+def _train_run(step, state, batches) -> tuple:
+    """Train ``batches`` from ``state``: (state, losses, compute ms per step,
+    launch counts, peak GiB).  The main path: counts set to 0 just before,
+    read just after.  The caller keeps no reference to ``state``, so each
+    step frees the state before it."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    reset_counts()
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    return state, losses, ms, counts, torch.cuda.max_memory_allocated() / 2**30
+
+
+def _stand_in(state) -> dict:
+    """A restore template of ``state``'s shapes and dtypes that holds no
+    memory: each leaf a broadcast scalar."""
+    from repro_torch.optim.adamw import OptState
+
+    def leaf(t):
+        return torch.empty((), dtype=t.dtype, device="cuda").expand(t.shape)
+
+    opt = state["opt"]
+    return {"params": {k: leaf(v) for k, v in state["params"].items()},
+            "opt": OptState({k: leaf(v) for k, v in opt.mu.items()},
+                            {k: leaf(v) for k, v in opt.nu.items()}, leaf(opt.step))}
+
+
+def _sharded_train_part(mesh, tmp: str) -> tuple[list, dict]:
+    """(a) 2 sharded steps against 2 plain ones from the same init, (c) a
+    checkpoint round trip before a third sharded step, (b)
+    ``compressed_psum`` over a gradient leaf."""
+    from repro_torch.checkpoint.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import compressed_psum, quantize_dequantize
+    from repro_torch.distributed.sharding import param_sharding
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm
+    from repro_torch.train.step import init_train_state
+
+    arch, seq = SHARDED_TRAIN
+    cfg = get_config(arch)
+    args, batches = _sharded_batches(cfg, tmp, SHARDED_STEPS + 1)
+    first, third = batches[:SHARDED_STEPS], batches[SHARDED_STEPS]
+    one = expected_train_counts(cfg, cfg.grad_accum)
+    want = {k: v * SHARDED_STEPS for k, v in one.items()}
+    times = {}
+    t0 = time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        times[part] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
+    def init():
+        return lm.flat_params(lm.init_lm(cfg, seed=ltrain.SEED, device="cuda"))
+
+    # (a) the sharded run: params and moments as DTensors
+    opt, sstep = ltrain.make_step(cfg, args, mesh=mesh)
+    state, s_losses, s_ms, s_counts, s_peak = _train_run(
+        sstep, init_train_state(init(), opt, mesh=mesh), first)
+    s_params = _whole_params(state)
+    lap("sharded steps")
+    # (c) a checkpoint of the sharded state after step 2, written whole
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=tmp) as ckdir:
+        path = save_checkpoint(ckdir, SHARDED_STEPS, state)
+        lap("save")
+        # the third step without the round trip, traced for the busy share
+        out = {}
+
+        def third_step():
+            out["s"], out["m"] = sstep(state, third)
+
+        s_busy = device_time(lambda: profiled_run(third_step, cpu=False),
+                             statistics.mean(s_ms[1:]), 1)
+        direct_params, direct_loss = _whole_params(out["s"]), float(out["m"]["loss"])
+        template = _stand_in(out["s"])
+        del state, out
+        gc.collect()
+        lap("traced third step")
+        restored, meta = restore_checkpoint(path, template,
+                                            shardings=param_sharding(template, mesh))
+        lap("restore")
+        reset_counts()
+        restored, m = sstep(restored, third)
+        r_loss = float(m["loss"])
+        r_counts = read_counts()
+        same_c, worst_c = _params_diff(_whole_params(restored), direct_params)
+        r_dtensor = all(type(p).__name__ == "DTensor" for p in restored["params"].values())
+        del restored, m, direct_params
+        lap("restored step")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) the plain run from the same init and batches; the sharded params
+    # wait on the host, out of its peak
+    s_params = {k: v.cpu() for k, v in s_params.items()}
+    _, pstep = ltrain.make_step(cfg, args)
+    state, p_losses, p_ms, p_counts, p_peak = _train_run(
+        pstep, init_train_state(init(), opt), first)
+    same_ap, worst_ap = _params_diff({k: v.cuda() for k, v in s_params.items()},
+                                     state["params"])
+    del s_params
+    lap("plain steps")
+    # (b) one microbatch's gradient of the scan's input projection, reduced
+    # in int8 over the mesh's data axis
+    mb = {k: v[: v.shape[0] // cfg.grad_accum] for k, v in first[0].items()}
+    leaves = {k: p.detach().requires_grad_(k == SHARDED_PSUM_LEAF)
+              for k, p in state["params"].items()}
+    loss, _ = lm.train_loss(lm.nested_params(leaves), mb, cfg)
+    grad = torch.autograd.grad(loss, leaves[SHARDED_PSUM_LEAF])[0]
+    del leaves, loss, state
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    summed = compressed_psum(grad, mesh.get_group("data"))
+    torch.cuda.synchronize()
+    psum_ms = (time.perf_counter() - t1) * 1e3
+    psum_equal = _bitwise(summed, quantize_dequantize(grad))
+    psum_row = {"part": "compressed_psum", "leaf": SHARDED_PSUM_LEAF,
+                "shape": list(grad.shape), "dtype": str(grad.dtype),
+                "group_size": mesh.size(0), "ms": psum_ms, "equal": psum_equal,
+                "max_abs": float(grad.float().abs().max())}
+    del grad, summed
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("compressed_psum")
+    base = {"arch": arch, "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
+            "params": cfg.num_params(), "seq_len": seq,
+            "rows_per_step": int(first[0]["tokens"].shape[0]),
+            "real_rows": [float(b["weights"].sum()) for b in batches],
+            "grad_accum": cfg.grad_accum, "steps": SHARDED_STEPS,
+            "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+            "expected_launches": want}
+    rows = [{**base, "part": "train", "run": "sharded", "losses": s_losses,
+             "step_ms": s_ms, "compute_ms_per_step": statistics.mean(s_ms[1:]),
+             "peak_device_gib": s_peak, "third_step_device": s_busy,
+             "launches": s_counts},
+            {**base, "part": "train", "run": "plain", "losses": p_losses,
+             "step_ms": p_ms, "compute_ms_per_step": statistics.mean(p_ms[1:]),
+             "peak_device_gib": p_peak, "launches": p_counts},
+            {"part": "train", "run": "sharded vs plain",
+             "losses_equal": s_losses == p_losses, "params_bitwise": same_ap,
+             "max_abs_diff": worst_ap},
+            psum_row,
+            {"part": "elastic_restore", "arch": arch, "save_s": times["save"],
+             "restore_s": times["restore"], "step": meta["step"], "dtensor": r_dtensor,
+             "loss": r_loss, "loss_without": direct_loss, "params_bitwise": same_c,
+             "max_abs_diff": worst_c, "launches": r_counts, "expected_launches": one},
+            {"part": "times_s", **times}]
+    launches = {name: {f"{arch} sharded train": s_counts[name],
+                       f"{arch} sharded vs plain train": p_counts[name],
+                       f"{arch} restored step": r_counts[name]} for name in counters()}
+    for r in rows:
+        log(f"[sharded] {json.dumps(r)}")
+    if s_counts != want or p_counts != want or r_counts != one:
+        raise AssertionError(f"launches: sharded {s_counts}, plain {p_counts}, "
+                             f"restored {r_counts}; want {want} and {one}")
+    if not all(map(math.isfinite, s_losses + p_losses)):
+        raise AssertionError(f"a loss that is not finite: {s_losses}, {p_losses}")
+    if s_losses != p_losses or not same_ap:
+        raise AssertionError(f"sharded against plain: losses {s_losses} and {p_losses}, "
+                             f"params max |diff| {worst_ap}")
+    if not psum_equal:
+        raise AssertionError("compressed_psum over one rank differs from quantize_dequantize")
+    if not (same_c and r_dtensor and r_loss == direct_loss and meta["step"] == SHARDED_STEPS):
+        raise AssertionError(f"the restored step differs: max |diff| {worst_c}, loss "
+                             f"{r_loss} against {direct_loss}, DTensors {r_dtensor}")
+    return rows, launches
+
+
+def _serve_turns(engines: dict, prompts, gen, turns: int = 3) -> dict:
+    """{key: {"prefill_ms", "decode_ms_per_token"}}: medians over ``turns``
+    alternating turns of every engine (host clock, as ``serve``)."""
+    pre = {k: [] for k in engines}
+    dec = {k: [] for k in engines}
+    for _ in range(turns):
+        for k, eng in engines.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng.prefill(prompts)
+            torch.cuda.synchronize()
+            pre[k].append((time.perf_counter() - t0) * 1e3)
+            dec[k].append(decode(eng, prompts, gen))
+    return {k: {"prefill_ms": statistics.median(pre[k]),
+                "decode_ms_per_token": statistics.median(dec[k])} for k in engines}
+
+
+def _sharded_serve_part() -> tuple[list, dict]:
+    """(d) minitron-8b at full width and depth serves with its 8 kv heads
+    repeated to 16 (``model_axis`` 16) and as they are (1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    arch, batch, prompt, gen = SHARDED_SERVE
+    cfg = get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    times = {"init": time.perf_counter() - t0}
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt))
+    rows, launches, runs, heads = [], {name: {} for name in counters()}, {}, {}
+    want = {k: v for k, v in expected_counts(cfg, gen).items() if k in counters()}
+    engines = {axis: ServeEngine(cfg, params, max_len=prompt + gen + 1, model_axis=axis,
+                                 device="cuda") for axis in SHARDED_MODEL_AXES}
+    for axis, eng in engines.items():
+        eng.generate(prompts[:, :16], 2)  # first calls out of the timed runs
+        torch.cuda.synchronize()
+        reset_counts()
+        logits, cache = eng.prefill(prompts)
+        prefill_counts = read_counts()
+        tokens = [torch.argmax(logits, dim=-1)]
+        step_logits = []
+        reset_counts()
+        for _ in range(gen):
+            step, cache = eng.step(cache, tokens[-1])
+            step_logits.append(step.float().cpu())
+            tokens.append(torch.argmax(step, dim=-1))
+        step_counts = read_counts()
+        main = {k: prefill_counts[k] + step_counts[k] for k in prefill_counts}
+        kv_heads = heads[axis] = int(cache["k"].shape[2])
+        runs[axis] = {"logits": logits.float().cpu(), "steps": step_logits,
+                      "tokens": torch.stack(tokens[:gen], 1).cpu()}
+        del cache, logits
+        row = {"part": "serve", "arch": arch, "layers": cfg.num_layers,
+               "param_dtype": cfg.param_dtype, "params": cfg.num_params(), "batch": batch,
+               "prompt": prompt, "gen": gen, "model_axis": axis, "kv_heads": kv_heads,
+               "true_kv_heads": cfg.num_kv_heads, "prefill_launches": prefill_counts,
+               "launches": main, "expected_launches": want,
+               "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+        rows.append(row)
+        for name in counters():
+            launches[name][f"{arch} model_axis {axis}"] = main[name]
+        times[f"model_axis {axis}"] = time.perf_counter() - t0 - sum(times.values())
+        log(f"[sharded] {json.dumps(row)}")
+        if main != want:
+            raise AssertionError(f"{arch} model_axis {axis}: launches {main}, want {want}")
+    timed = _serve_turns(engines, prompts, gen)
+    for row in rows:
+        row.update(timed[row["model_axis"]])
+        log(f"[sharded] {arch} model_axis {row['model_axis']}: {timed[row['model_axis']]}")
+    times["timing turns"] = time.perf_counter() - t0 - sum(times.values())
+    del engines
+    a, b = (runs[x] for x in SHARDED_MODEL_AXES)
+    tokens_equal = torch.equal(a["tokens"], b["tokens"])
+    # prefill attends the un-repeated k/v: equal logits say the cache layout
+    # leaves prefill as it was.  Decode reads the cache, so its logits are
+    # what tests the repeated heads: each query head must read its own kv
+    # head's values among the 16
+    prefill_equal = _bitwise(a["logits"], b["logits"])
+    decode_equal = all(map(_bitwise, a["steps"], b["steps"]))
+    diffs = [float((x - y).abs().max()) for x, y in zip(a["steps"], b["steps"])]
+    rows.append({"part": "serve", "run": "model_axis 16 vs 1", "tokens_equal": tokens_equal,
+                 "prefill_logits_bitwise": prefill_equal,
+                 "decode_logits_bitwise": decode_equal,
+                 "decode_logits_max_abs_diff": max(diffs), "times_s": times})
+    log(f"[sharded] {json.dumps(rows[-1])}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not (tokens_equal and prefill_equal and decode_equal):
+        raise AssertionError(f"{arch}: model_axis 16 against 1: tokens equal {tokens_equal}, "
+                             f"prefill logits equal {prefill_equal}, decode logits equal "
+                             f"{decode_equal} (max |diff| {max(diffs)})")
+    if heads != {16: 2 * cfg.num_kv_heads, 1: cfg.num_kv_heads}:  # each kv head twice
+        raise AssertionError(f"{arch}: cached kv heads {heads} at model axes 16 and 1")
+    return rows, launches
+
+
+def _sharded_child(result_path: str) -> None:
+    """The ``sharded`` phase's process: a one-rank NCCL group and its (1, 1)
+    mesh for the whole phase; writes ``{"rows", "launches"}`` (or the
+    traceback) as JSON to ``result_path``."""
+    import torch.distributed as dist
+
+    out = {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        from repro_torch.launch.mesh import make_local_mesh
+
+        t0 = time.perf_counter()
+        mesh = make_local_mesh()
+        log(f"[sharded] mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+            f"{dist.get_backend()} in {time.perf_counter() - t0:.1f}s")
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+            rows, launches = _sharded_train_part(mesh, tmp)
+        serve_rows, serve_launches = _sharded_serve_part()
+        for name, by_path in serve_launches.items():
+            launches[name].update(by_path)
+        out = {"rows": rows + serve_rows, "launches": launches}
+    except BaseException:  # the parent fails the phase with it
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        Path(result_path).write_text(json.dumps(out))
+
+
+def phase_sharded() -> tuple[list, dict]:
+    """The sharded path in a spawned child process (which imports this
+    script again), so the NCCL group lives and dies with it: returns the
+    ``sharded`` line's rows and {kernel: {path: launches}}."""
+    import multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_result_") as tmp:
+        result = Path(tmp) / "result.json"
+        proc = mp.get_context("spawn").Process(target=_sharded_child, args=(str(result),),
+                                               name="chip-smoke-sharded")
+        proc.start()
+        proc.join(SHARDED_TIMEOUT_S)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(30)
+            raise AssertionError(f"the sharded child outlived {SHARDED_TIMEOUT_S} s")
+        out = json.loads(result.read_text()) if result.exists() else {}
+    if "error" in out:
+        raise AssertionError(f"the sharded child failed:\n{out['error']}")
+    if proc.exitcode != 0 or "rows" not in out:
+        raise AssertionError(f"the sharded child exited {proc.exitcode} with no result")
+    return out["rows"], out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2977,6 +3389,10 @@ def main() -> int:
         done("stream_train")
         for name, by_path in stream_launches.items():
             launches[name].update(by_path)
+        sharded_rows, sharded_launches = phase_sharded()
+        done("sharded")
+        for name, by_path in sharded_launches.items():
+            launches[name].update(by_path)
         rows = phase_report(launches, worst, worst_bwd, library_device_ms)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
@@ -2988,6 +3404,7 @@ def main() -> int:
     print(json.dumps({"tier_serve": tier_rows}), flush=True)
     print(json.dumps({"dist_tier_serve": dist_rows}), flush=True)
     print(json.dumps({"stream_train": stream_rows}), flush=True)
+    print(json.dumps({"sharded": sharded_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

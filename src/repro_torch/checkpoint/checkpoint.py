@@ -18,6 +18,13 @@ tensor}]}``; flat names map to pytree paths by ``.`` → ``__``.
 bf16 leaves are written widened to f32 (numpy has no bf16 without
 ``ml_dtypes``), which restores exactly into a bf16 template.
 
+A sharded state (DTensor leaves, ``init_train_state(..., mesh=)``) is
+written whole, as the JAX package's ``device_get`` writes it: the snapshot
+gathers every leaf on every rank (a collective), and rank 0 writes.
+``restore_checkpoint(..., shardings=)`` lays each leaf out on the current
+mesh (elastic restore), so checkpoints cross between meshes, and between
+the packages, both ways.
+
 Fault-tolerance contract (as in the JAX package):
   * restore(save(state)) is bit-exact, optimizer moments included,
   * the plan cursor (:func:`plan_cursor_extra` / :func:`resume_cursor`)
@@ -117,7 +124,13 @@ def _surrogate(state) -> bool:
     return is_surrogate_params(state.get("params", {}))
 
 
+def _dtensor(t) -> bool:
+    return type(t).__name__ == "DTensor"
+
+
 def _leaf_to_host(name: str | None, t: torch.Tensor, surrogate: bool) -> np.ndarray:
+    if _dtensor(t):
+        t = t.full_tensor()
     if name is None:  # the optimizer's step counter
         return np.asarray(t.detach().cpu().numpy(), np.int32)
     return surrogate_leaf_to_jax(name, t) if surrogate else tensor_to_numpy(t)
@@ -156,9 +169,45 @@ def _write(directory: str, step: int, leaves, extra: dict | None) -> str:
     return d
 
 
+def _sharded(state) -> bool:
+    """Whether ``state`` is sharded (DTensor leaves): rank 0 alone writes it."""
+    return any(_dtensor(t) for t in _leaves(state))
+
+
+def _leaves(state) -> list:
+    out = []
+    _map_state(state, lambda fname, name, t: out.append(t))
+    return out
+
+
+def _from_rank0(fn):
+    """``fn()`` run on rank 0 and its result broadcast to every rank; an
+    error on rank 0 raises on every rank, so none waits on a checkpoint
+    that will not come."""
+    import torch.distributed as dist
+
+    out, err = [None, None], None
+    if dist.get_rank() == 0:
+        try:
+            out[0] = fn()
+        except BaseException as exc:  # re-raised below, after the broadcast
+            err, out[1] = exc, f"{type(exc).__name__}: {exc}"
+    dist.broadcast_object_list(out, src=0)
+    if err is not None:
+        raise err
+    if out[1] is not None:
+        raise RuntimeError(f"rank 0 failed to write the checkpoint: {out[1]}")
+    return out[0]
+
+
 def save_checkpoint(directory: str, step: int, state, *, extra: dict | None = None) -> str:
-    """Synchronous save of the port's train state."""
-    return _write(directory, step, state_to_host(state), extra)
+    """Synchronous save of the port's train state.  A sharded state is
+    gathered on every rank and written by rank 0; every rank returns the
+    committed path once it is written, or raises rank 0's error."""
+    host = state_to_host(state)
+    if _sharded(state):
+        return _from_rank0(lambda: _write(directory, step, host, extra))
+    return _write(directory, step, host, extra)
 
 
 def latest_checkpoint(directory: str) -> str | None:
@@ -194,15 +243,28 @@ def _load_leaf(path: str, fname: str, name: str | None, tmpl: torch.Tensor,
     return t.to(dtype=tmpl.dtype, device=tmpl.device)
 
 
-def restore_checkpoint(path: str, template):
+def restore_checkpoint(path: str, template, *, shardings=None):
     """Restore into the structure, dtypes and devices of ``template`` (a
-    train state).  Returns (state, meta)."""
+    train state).  ``shardings`` (the template's structure of
+    ``NamedSharding``, e.g. ``param_sharding(template, mesh)``) lays each
+    leaf out on the current mesh as a DTensor (elastic restore); without it
+    leaves are plain tensors.  Returns (state, meta)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     surrogate = _surrogate(template)
-    state = _map_state(template,
-                       lambda fname, name, t: _load_leaf(path, fname, name, t, surrogate))
-    return state, meta
+    layout = {}
+    if shardings is not None:
+        _map_state(shardings, lambda fname, name, sh: layout.__setitem__(fname, sh))
+
+    def leaf(fname, name, t):
+        out = _load_leaf(path, fname, name, t, surrogate)
+        if fname in layout:
+            from repro_torch.distributed.fsdp import distribute
+
+            out = distribute(out, layout[fname])
+        return out
+
+    return _map_state(template, leaf), meta
 
 
 class AsyncCheckpointer:
@@ -210,18 +272,25 @@ class AsyncCheckpointer:
 
     The device-to-host snapshot happens synchronously (a consistent state);
     serialization runs on a background thread.  ``wait()`` joins the write
-    in flight (call before exit / before depending on the file).
+    in flight (call before exit / before depending on the file; after a
+    sharded save every rank calls it).
     """
 
     def __init__(self, directory: str):
         self.directory = directory
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
+        self._sharded = False
         self.last_path: str | None = None
 
     def save(self, step: int, state, *, extra: dict | None = None):
+        """Snapshot now (a collective for a sharded state, whose rank 0
+        alone writes), write in the background."""
         host = state_to_host(state)
         self.wait()
+        self._sharded = _sharded(state)
+        if self._sharded and _rank() != 0:
+            return
 
         def work():
             try:
@@ -233,9 +302,26 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self):
+        """Join the write in flight.  After a sharded save this is a
+        collective: every rank gets rank 0's ``last_path``, or its error."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        if self._sharded:
+            self._sharded = False
+
+            def outcome():
+                if err is not None:
+                    raise err
+                return self.last_path
+
+            self.last_path = _from_rank0(outcome)
+        elif err is not None:
             raise err
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()

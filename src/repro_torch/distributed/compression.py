@@ -1,12 +1,16 @@
-"""Gradient compression: the numeric half of ``repro.distributed.compression``.
+"""Gradient compression for bandwidth-constrained links: port of
+``repro.distributed.compression``.
 
 Int8 block quantization with error feedback: each leaf is flattened, padded
 to blocks of 256, and quantized with a per-block f32 scale ``max|x| / 127``
 (clamped at 1e-12); the quantization residual is added to the *next* step's
 gradient (error feedback, Karimireddy 2019).  ``torch.round`` rounds half to
 even like ``jnp.round``, so the payload matches the JAX package bit for bit.
-The collective (``compressed_psum``) is not ported yet: ROADMAP.md Queue 1
-item 3.
+
+Two entry points, as there: :func:`quantize_dequantize` (the numerics) and
+:func:`compressed_psum`, the explicit int8 all-reduce over a
+``torch.distributed`` group (the JAX package's is a ``shard_map``
+collective over a mesh axis).
 """
 from __future__ import annotations
 
@@ -17,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.convert import from_jax_layout, to_jax_layout
 
-__all__ = ["quantize", "dequantize", "quantize_dequantize",
+__all__ = ["quantize", "dequantize", "quantize_dequantize", "compressed_psum",
            "init_error_feedback", "apply_error_feedback"]
 
 _BLOCK = 256
@@ -70,3 +74,31 @@ def apply_error_feedback(grads: Mapping[str, torch.Tensor], ef: Mapping[str, tor
         sent[k] = s.to(g.dtype)
         new_ef[k] = corrected - s.to(torch.float32)
     return sent, new_ef
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Int8 all-reduce of ``x`` over the ranks of ``group`` (a
+    ``torch.distributed`` process group; None: the default group, e.g.
+    ``mesh.get_group("data")`` for one mesh axis).
+
+    The int8 payloads are widened to int32 and all-gathered with the f32
+    scales; each rank then sums ``q·scale`` in f32 over the ranks, in rank
+    order.  The result equals ``sum_r quantize_dequantize(x_r)``, on every
+    rank, as the JAX package's does: quantization error only, no overflow.
+    """
+    import torch.distributed as dist
+
+    q, scale, pad = quantize(x)
+    world = dist.get_world_size(group)
+    payloads = [torch.empty(q.shape, dtype=torch.int32, device=q.device)
+                for _ in range(world)]
+    scales = [torch.empty_like(scale) for _ in range(world)]
+    dist.all_gather(payloads, q.to(torch.int32), group=group)
+    dist.all_gather(scales, scale, group=group)
+    total = payloads[0].to(torch.float32) * scales[0]
+    for q_r, s_r in zip(payloads[1:], scales[1:]):
+        total = total + q_r.to(torch.float32) * s_r
+    out = total.reshape(-1)
+    if pad:
+        out = out[:-pad]
+    return out.reshape(x.shape).to(x.dtype)

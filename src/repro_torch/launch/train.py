@@ -533,9 +533,11 @@ def make_batch_fn(cfg, capacity: int):
     return make_batch
 
 
-def make_step(cfg, args):
+def make_step(cfg, args, mesh=None):
     """The launcher's optimizer config and training step on flat params
-    (``train_loss``'s 'auto' paths: the kernels on the card)."""
+    (``train_loss``'s 'auto' paths: the kernels on the card); with ``mesh``
+    the sharded step (``train.step``), which takes the state of
+    ``init_train_state(..., mesh=mesh)``."""
     from repro_torch.models import encdec, lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import make_train_step
@@ -546,7 +548,7 @@ def make_step(cfg, args):
     def loss_fn(p, b):
         return train_loss(lm.nested_params(p), b, cfg)
 
-    return opt, make_train_step(cfg, opt, loss_fn)
+    return opt, make_train_step(cfg, opt, loss_fn, mesh=mesh)
 
 
 def train(args, device=None, *, cfg=None):

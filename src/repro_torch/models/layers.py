@@ -17,7 +17,9 @@ CPU inputs.  Every path is differentiable: the kernels through their
 backward kernels, the plain ``rms_norm`` through the JAX package's custom
 VJP (cotangents in the input dtypes), the rest through autograd.
 
-``constrain`` has no counterpart: one card has no mesh to constrain to.
+``constrain`` has no counterpart: on a mesh the sharded train step hands
+the model whole, gathered weights (``distributed/fsdp.py``), so an
+activation is never a DTensor and has no layout to pin.
 """
 from __future__ import annotations
 

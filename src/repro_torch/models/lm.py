@@ -412,13 +412,20 @@ def train_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto",
 
 @dataclasses.dataclass(frozen=True)
 class CacheSpec:
-    """Cache layout on one card: the true kv heads, ``cache_len`` positions
-    (for a sliding window shorter than the sequence, a ring of ``window``
+    """Cache layout: ``kv_heads`` stored heads, ``cache_len`` positions (for
+    a sliding window shorter than the sequence, a ring of ``window``
     positions indexed by ``pos % window``), int8 payload with f32 per-row
     scales when ``quantized``.  The ssm family keeps no KV cache.  The
     encdec family's self-attention cache takes the same layout
-    (``models/encdec.py``); its K/V are never quantized, as in the JAX
-    package.  A vlm cache counts the patch prefix."""
+    (``models/encdec.py``) with its true heads; its K/V are never quantized,
+    as in the JAX package.  A vlm cache counts the patch prefix.
+
+    ``kv_heads`` is the true kv heads, repeated so the head axis divides a
+    model axis of ``model_axis`` devices where that can work (each kv head
+    ``model_axis / K`` times, when ``model_axis`` is a multiple of K and
+    divides the query heads; DESIGN.md §4); otherwise the true heads, and a
+    mesh shards the sequence axis instead (``cache_sharding``).  Query head
+    ``h`` reads the same K/V either way."""
 
     kv_heads: int
     cache_len: int
@@ -426,16 +433,23 @@ class CacheSpec:
     quantized: bool = False
 
     @staticmethod
-    def build(cfg: ModelConfig, seq_len: int) -> "CacheSpec":
+    def build(cfg: ModelConfig, seq_len: int, model_axis: int = 1) -> "CacheSpec":
         if cfg.family != "encdec":
             check_supported(cfg)
         if cfg.family == "ssm":
             return CacheSpec(0, 0, False, False)
+        k, h = cfg.num_kv_heads, cfg.num_heads
         quant = cfg.kv_cache_dtype == "int8"
+        if k % model_axis == 0 or model_axis == 1:
+            k_eff = k
+        elif model_axis % k == 0 and h % model_axis == 0:
+            k_eff = model_axis          # repeat each kv head model/k times
+        else:
+            k_eff = k                   # unshardable heads -> shard seq axis
         window = cfg.sliding_window if cfg.family == "hybrid" else 0
         if window and window < seq_len:
-            return CacheSpec(cfg.num_kv_heads, window, True, quant)
-        return CacheSpec(cfg.num_kv_heads, seq_len, False, quant)
+            return CacheSpec(k_eff, window, True, quant)
+        return CacheSpec(k_eff, seq_len, False, quant)
 
 
 def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
@@ -462,6 +476,12 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
         cache["conv"] = torch.zeros((cfg.num_layers, batch, ck - 1, di), dtype=cd,
                                     device=device)
     return cache
+
+
+def _repeat_to(kv, k_eff: int):
+    """kv [B, K, S, hd] with each head repeated to ``k_eff`` heads."""
+    k = kv.shape[1]
+    return L.repeat_kv(kv, k_eff // k) if k_eff != k else kv
 
 
 def _write_kv(cache, i: int, start: int, k, v, spec: CacheSpec, cd):
@@ -517,7 +537,8 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             q, k, v = _qkv(h, lp, cfg, positions)
             o = L.attention(q, k, v, causal=True, window=window, impl=attn_impl)
             mix = _attn_out(o, lp)
-            _write_prefill_kv(cache, i, k, v, spec, cd)
+            _write_prefill_kv(cache, i, _repeat_to(k, spec.kv_heads),
+                              _repeat_to(v, spec.kv_heads), spec, cd)
         if cfg.family in ("ssm", "hybrid"):
             ssm_o, h_last, conv_tail = _mamba(h, lp, cfg, impl=ssm_impl)
             cache["ssm_h"][i] = h_last
@@ -550,7 +571,8 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
         if cfg.family != "ssm":
             q, k, v = _qkv(h, lp, cfg, positions)
-            _write_kv(cache, i, write, k, v, spec, cd)
+            _write_kv(cache, i, write, _repeat_to(k, spec.kv_heads),
+                      _repeat_to(v, spec.kv_heads), spec, cd)
             scales = {}
             if spec.quantized:
                 scales = {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}

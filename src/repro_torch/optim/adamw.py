@@ -80,11 +80,14 @@ def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     )
 
 
-def apply_updates(params, grads, state: OptState, cfg: AdamWConfig):
-    """One AdamW step.  Returns (new_params, new_state, metrics)."""
+def apply_updates(params, grads, state: OptState, cfg: AdamWConfig, *, gnorm=None):
+    """One AdamW step.  Returns (new_params, new_state, metrics).  ``gnorm``
+    is the global gradient norm when the caller computes it (a sharded step
+    passes its shards here and sums their squares over the mesh)."""
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = (torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-9), 1.0)
              if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
     stepf = step.to(torch.float32)

@@ -27,10 +27,12 @@ class ServeEngine:
     ('pallas' is the hand-written CUDA kernel; the default 'auto' takes it
     for CUDA inputs and raises where it refuses one).  The encoder-decoder
     has no RMSNorm and no scan.  ``device`` defaults to the card and raises
-    without one; pass ``device='cpu'`` to run on the CPU."""
+    without one; pass ``device='cpu'`` to run on the CPU.  ``model_axis``
+    is the model-parallel width the cache is laid out for
+    (``CacheSpec.build``: kv heads repeated to divide it)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
-                 attn_impl: str = "auto", ssm_impl: str = "auto",
+                 model_axis: int = 1, attn_impl: str = "auto", ssm_impl: str = "auto",
                  norm_impl: str = "auto", device=None):
         if cfg.family == "vlm":
             raise NotImplementedError(
@@ -39,7 +41,7 @@ class ServeEngine:
                 "lm.decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
-        self.spec = CacheSpec.build(cfg, max_len)
+        self.spec = CacheSpec.build(cfg, max_len, model_axis)
         self.attn_impl = attn_impl
         self.ssm_impl = ssm_impl
         self.norm_impl = norm_impl

@@ -138,18 +138,20 @@ class Trainer:
     # -- fault tolerance -------------------------------------------------------
 
     @classmethod
-    def try_restore(cls, checkpoint_dir, state_template, plan_hash: str | None = None):
+    def try_restore(cls, checkpoint_dir, state_template, plan_hash: str | None = None, *,
+                    shardings=None):
         """Returns (state, resume_step) — (template, 0) when no checkpoint.
 
         ``resume_step`` comes from the checkpoint's plan cursor.  When both
         ``plan_hash`` and the checkpoint record one, a mismatch raises —
         resuming a mid-plan cursor against a *different* plan would train
-        the wrong sample sequence.
+        the wrong sample sequence.  ``shardings`` restores onto the current
+        mesh (``restore_checkpoint``'s elastic restore).
         """
         path = latest_checkpoint(checkpoint_dir) if checkpoint_dir else None
         if path is None:
             return state_template, 0
-        state, meta = restore_checkpoint(path, state_template)
+        state, meta = restore_checkpoint(path, state_template, shardings=shardings)
         saved_hash = meta.get("extra", {}).get("plan_hash")
         if plan_hash and saved_hash and plan_hash != saved_hash:
             raise ValueError(

@@ -1,11 +1,13 @@
 """The port's serving slice against the JAX package on the CPU: qwen2-0.5b at
-``reduced()`` in f32, from the same weights.
+``reduced()`` in f32, from the same weights; and the nine decoder-only archs
+with their kv heads repeated for a model axis (``model_axis``).
 
 The JAX init leaves biases and norm scales at zero, which would hide a bias
 or ``1 + scale`` bug, so every leaf gets seeded numpy noise before it is
 handed to both sides (through ``convert.params_from_jax`` for the port).
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +16,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jax_config
+from repro.configs import list_configs
 from repro.models import lm as jlm
 from repro.serve.engine import ServeEngine as JaxEngine
 from repro_torch.configs import get_config
@@ -158,3 +161,74 @@ def test_convert_bf16_round_trip():
     # non-contiguous leaves and a cast on the way in
     assert tensor_from_numpy(leaf.T).shape == (6, 4)
     assert params_from_jax({"w": leaf}, "cpu", torch.float32)["w"].dtype == torch.float32
+
+
+# -- kv heads repeated for a model axis ------------------------------------------------
+
+DECODER_ARCHS = [a for a in list_configs() if jax_config(a).family != "encdec"]
+AXIS_GEN = 5
+
+
+@functools.lru_cache(maxsize=None)
+def _noisy_tree(arch):
+    tree = jax.tree.map(np.asarray, jlm.init_lm(jax.random.PRNGKey(0),
+                                                jax_config(arch).reduced()))
+    rng = np.random.default_rng(1)
+    return jax.tree.map(lambda a: (a + 0.05 * rng.standard_normal(a.shape)).astype(a.dtype),
+                        tree)
+
+
+@pytest.mark.parametrize("model_axis", [1, 4])
+@pytest.mark.parametrize("arch", DECODER_ARCHS)
+def test_repeated_kv_heads_serve_like_jax(arch, model_axis):
+    """``model_axis`` 4 repeats the reduced GQA archs' 2 kv heads to 4 in the
+    cache: prefill and 5 decode steps match the JAX package at the same
+    ``model_axis``, through ``ServeEngine`` (the vlm family, which neither
+    engine serves, through ``lm.prefill``/``lm.decode_step``)."""
+    cfg, jcfg = get_config(arch).reduced(), jax_config(arch).reduced()
+    tree = _noisy_tree(arch)
+    params, jparams = params_from_jax(tree, "cpu"), jax.tree.map(jnp.asarray, tree)
+    rng = np.random.default_rng(3)
+    prompts = rng.integers(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    max_len = S + AXIS_GEN + 1
+    kw = {}
+    if cfg.family == "vlm":
+        max_len += cfg.num_patches
+        patches = rng.standard_normal((2, cfg.num_patches, cfg.d_model)).astype(np.float32)
+        kw = {"patches": patches}
+        spec = lm.CacheSpec.build(cfg, max_len, model_axis)
+        jspec = jlm.CacheSpec.build(jcfg, max_len, model_axis)
+
+        def prefill(p):
+            return lm.prefill(params, torch.from_numpy(p).long(), cfg, spec,
+                              patches=torch.from_numpy(patches))
+
+        def step(cache, tok):
+            return lm.decode_step(params, cache, tok, cfg, spec)
+
+        jprefill = jax.jit(functools.partial(jlm.prefill, cfg=jcfg, spec=jspec))
+        jstep = jax.jit(functools.partial(jlm.decode_step, cfg=jcfg, spec=jspec))
+    else:
+        eng = ServeEngine(cfg, params, max_len=max_len, model_axis=model_axis, device="cpu")
+        jeng = JaxEngine(jcfg, jparams, max_len=max_len, model_axis=model_axis)
+        spec, jspec = eng.spec, jeng.spec
+        prefill, step = eng.prefill, eng.step
+        jprefill, jstep = jeng._prefill, jeng._step
+    assert spec == lm.CacheSpec(jspec.kv_heads, jspec.cache_len, jspec.ring, jspec.quantized)
+    if cfg.family != "ssm" and model_axis == 4:
+        assert spec.kv_heads == 4 != cfg.num_kv_heads  # each kv head twice
+
+    logits, cache = prefill(prompts)
+    jlogits, jcache = jprefill(jparams, jnp.asarray(prompts),
+                               **{k: jnp.asarray(v) for k, v in kw.items()})
+    _close(logits, jlogits)
+    for key in ("k", "v"):
+        if key in jcache:
+            assert cache[key].shape[2] == spec.kv_heads
+            _close(cache[key], jcache[key])
+    tok = np.asarray(jnp.argmax(jlogits, axis=-1)).astype(np.int32)
+    for _ in range(AXIS_GEN):
+        logits, cache = step(cache, torch.from_numpy(tok).long())
+        jlogits, jcache = jstep(jparams, jcache, jnp.asarray(tok))
+        _close(logits, jlogits)
+        tok = np.asarray(jnp.argmax(jlogits, axis=-1)).astype(np.int32)
