@@ -145,6 +145,23 @@ Phases, all run in order, each of which must pass:
                head among the repeated ones) equal bit for bit, launches
                exact, prefill and decode timed in alternating turns.  Prints a ``{"sharded": [...]}``
                line;
+     dryrun  — ``repro_torch.launch.dryrun``: a spawned child owning the
+               fake process group reckons qwen2-0.5b ``train_4k`` and
+               hymba-1.5b ``prefill_32k`` on the 16x16 and 2x16x16 meshes
+               (every cell ``ok``) while this process reckons the cells'
+               one-card programs on meta tensors; then each program runs on
+               the card at full width and depth, bf16, seed 0 (qwen2-0.5b's
+               step on the 16x16 data rank's 16 rows × 4096 at grad_accum
+               4, hymba-1.5b's prefill of 2 × 32768): warm-up, a main run
+               timed with the launch counts set to 0 just before and read
+               just after, a traced run, a run under ``op_analysis``.  Dot
+               FLOPs by dtype, traffic bytes and the kernels' work must
+               equal the meta reckoning, the launches its kernel calls, the
+               reckoned peak ``max_memory_allocated`` within
+               ``DRYRUN_PEAK_TOL``, the roofline bound at most
+               ``DRYRUN_MAX_SHARE`` of the device time, and the 16x16
+               cell's dot FLOPs a device the card's.  Prints a
+               ``{"dryrun": [...]}`` line;
   7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
@@ -450,6 +467,21 @@ SHARDED_SERVE = ("minitron-8b", 4, 512, 32)
 SHARDED_MODEL_AXES = (16, 1)
 SHARDED_TIMEOUT_S = 600
 
+# The dry run (``repro_torch.launch.dryrun``): cells reckoned in a child on
+# both production meshes, and the per-device programs of those cells run on
+# the card against the same programs reckoned on meta tensors: qwen2-0.5b's
+# train step on the 16x16 mesh's data-rank batch (rows, seq) and hymba-1.5b's
+# prefill of its rows, the cache built for the model axis of 16.
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k"), ("hymba-1.5b", "prefill_32k"))
+DRYRUN_DATA_RANKS = 16
+DRYRUN_MODEL_AXIS = 16
+DRYRUN_TIMEOUT_S = 300
+#: the reckoned peak against ``torch.cuda.max_memory_allocated``
+DRYRUN_PEAK_TOL = 0.10
+#: the largest roofline bound / measured device time that passes: a count
+#: that misses work gives a bound above the time the card took
+DRYRUN_MAX_SHARE = 1.05
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -644,9 +676,10 @@ def score_entries(shape) -> tuple:
     bf16 kernel computes (whole 64x64 tiles over each query tile's
     ``key_tile_range``), over all heads."""
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import work
 
     b, h, _, sq, sk, _, causal, window = shape
-    admitted = int(mask_ok(sq, sk, causal, window).sum())
+    admitted = work.admitted_scores(sq, sk, causal, window)
     tiles = 0
     for q0 in range(0, sq, fa.BLOCK_Q):
         begin, end = fa.key_tile_range(q0, sq, sk, causal, window)
@@ -657,11 +690,13 @@ def score_entries(shape) -> tuple:
 def attention_bound(q, k, causal: bool, window: int):
     """Least time (ms) for attention on these inputs: the larger of the bytes
     (q, k, v read once, o written once) over HBM and the FLOPs of the
-    unmasked score/value products over the bf16 tensor-core peak."""
-    b, h, sq, hd = q.shape
-    flops = 4 * hd * int(mask_ok(sq, k.shape[2], causal, window).sum()) * b * h
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / HBM_BYTE_S
+    unmasked score/value products over the bf16 tensor-core peak
+    (``kernels/work.attention``)."""
+    from repro_torch.kernels import work
+
+    (b, h, sq, hd), (kh, sk) = q.shape, k.shape[1:3]
+    w = work.attention(b, h, kh, sq, sk, hd, causal, window, q.element_size())
+    t_ops, t_bytes = w.dot_flops / PEAK_BF16_FLOP_S, w.bytes / HBM_BYTE_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -671,24 +706,33 @@ def scan_bound(u, a, clock_hz: float):
     in f32) over HBM, one exp per (b, t, d, n) over the special function
     units (16 per clock per SM at the card's maximum SM clock), and six f32
     operations per (b, t, d, n) (dt*a; decay*h + du*B; y += h*C) over the f32
-    peak.  Returns (ms, 'bytes'|'operations', parts)."""
-    b, s, di = u.shape
-    n = a.shape[1]
-    elems = b * s * di * n
-    nbytes = (2 * u.numel() + 2 * b * s * n) * u.element_size() \
-        + (a.numel() + di) * 4 + (u.numel() + b * di * n) * 4
-    parts = {"bytes": nbytes / HBM_BYTE_S * 1e3,
-             "exp": elems / (SFU_PER_SM_CLK * SMS * clock_hz) * 1e3,
-             "f32_ops": 6 * elems / PEAK_F32_FLOP_S * 1e3}
+    peak (``kernels/work.scan``).  Returns (ms, 'bytes'|'operations', parts)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.scan(*u.shape, a.shape[1], u.element_size()), clock_hz)
+
+
+def work_bound(w, clock_hz: float):
+    """(ms, 'bytes'|'operations', parts) of a ``kernels/work.Work`` of the
+    scan: its bytes over HBM, its exps over the special function units (16
+    per clock per SM at ``clock_hz``) and its f32 operations over the f32
+    peak."""
+    parts = {"bytes": w.bytes / HBM_BYTE_S * 1e3,
+             "exp": w.exps / (SFU_PER_SM_CLK * SMS * clock_hz) * 1e3,
+             "f32_ops": w.f32_ops / PEAK_F32_FLOP_S * 1e3}
     worst = max(parts, key=parts.get)
     return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
 
 
 def norm_bound(x, scale):
     """Least time (ms) for RMSNorm: x read once, out written once, scale
-    read once, over HBM (a few f32 operations per element are far below)."""
-    nbytes = 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size()
-    return nbytes / HBM_BYTE_S * 1e3, "bytes"
+    read once, over HBM (a few f32 operations per element are far below;
+    ``kernels/work.norm``)."""
+    from repro_torch.kernels import work
+
+    w = work.norm(x.numel() // x.shape[-1], x.shape[-1], x.element_size(),
+                  scale.element_size())
+    return w.bytes / HBM_BYTE_S * 1e3, "bytes"
 
 
 # ---------------------------------------------------------------------------
@@ -1989,11 +2033,13 @@ def attention_bwd_bound(q, k, causal: bool, window: int):
     """Least time (ms) for attention's backward: the larger of the bytes (q,
     k, v, o, dO and the row log-sum-exp read once; dq, dk, dv written once)
     over HBM and 10 * hd FLOPs per admitted score (S recomputed, dP, dV, dQ,
-    dK: five products) over the bf16 tensor-core peak."""
-    b, h, sq, hd = q.shape
-    flops = 10 * hd * int(mask_ok(sq, k.shape[2], causal, window).sum()) * b * h
-    nbytes = (4 * q.numel() + 4 * k.numel()) * q.element_size() + 4 * b * h * sq
-    t_ops, t_bytes = flops / PEAK_BF16_FLOP_S, nbytes / HBM_BYTE_S
+    dK: five products) over the bf16 tensor-core peak
+    (``kernels/work.attention_bwd``)."""
+    from repro_torch.kernels import work
+
+    (b, h, sq, hd), (kh, sk) = q.shape, k.shape[1:3]
+    w = work.attention_bwd(b, h, kh, sq, sk, hd, causal, window, q.element_size())
+    t_ops, t_bytes = w.dot_flops / PEAK_BF16_FLOP_S, w.bytes / HBM_BYTE_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -2003,17 +2049,10 @@ def scan_bwd_bound(u, a, clock_hz: float):
     input dtype and the f32 da, dd_skip written once) over HBM, one exp per
     (b, t, d, n) (each step's decay) over the special function units, and
     14 f32 operations per (b, t, d, n) (dh = decay * dh + C dy; one FMA each
-    into dA, ddt, du, dB and dC) over the f32 peak."""
-    b, s, di = u.shape
-    n = a.shape[1]
-    elems = b * s * di * n
-    nbytes = 2 * (2 * u.numel() + 2 * b * s * n) * u.element_size() \
-        + 2 * (a.numel() + di) * 4 + u.numel() * 4
-    parts = {"bytes": nbytes / HBM_BYTE_S * 1e3,
-             "exp": elems / (SFU_PER_SM_CLK * SMS * clock_hz) * 1e3,
-             "f32_ops": 14 * elems / PEAK_F32_FLOP_S * 1e3}
-    worst = max(parts, key=parts.get)
-    return parts[worst], ("bytes" if worst == "bytes" else "operations"), parts
+    into dA, ddt, du, dB and dC) over the f32 peak (``kernels/work.scan_bwd``)."""
+    from repro_torch.kernels import work
+
+    return work_bound(work.scan_bwd(*u.shape, a.shape[1], u.element_size()), clock_hz)
 
 
 def _grad_device_ms(out, leaves, grad, calls: int) -> list:
@@ -2115,6 +2154,7 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
     from repro_torch.kernels import ref
     from repro_torch.kernels import rmsnorm as rn
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.kernels import work
 
     rows = []
     eager = dict(iters=1, repeats=3, warmup=1)
@@ -2235,7 +2275,7 @@ def report_bwd(launches: dict, worst_bwd: dict, clock_hz: float,
              "plain": graph_ms(lambda: ref.rms_norm_ref_bwd(x, scale, dy, 1e-6)),
              "library": cuda_ms(library, iters=20)}
         # x and dy read once, dx written once, scale read and ds written once
-        nbytes = 3 * x.numel() * x.element_size() + 2 * scale.numel() * scale.element_size()
+        nbytes = work.norm_bwd(*shape, x.element_size(), scale.element_size()).bytes
         bound_ms = nbytes / HBM_BYTE_S * 1e3
         plan = rn.bwd_launch_shape(*shape, x.dtype, sms=sms)
         log(f"[report] rms_norm_bwd {shape} bf16 ms per call: {t}; bound {bound_ms:.4f} (bytes); "
@@ -3337,6 +3377,197 @@ def phase_sharded() -> tuple[list, dict]:
     return out["rows"], out["launches"]
 
 
+def _dryrun_child(result_path: str) -> None:
+    """The ``dryrun`` phase's process: owns the fake process group of each
+    production mesh in turn and reckons ``DRYRUN_CELLS`` on it; writes
+    ``{"rows"}`` (or the traceback) as JSON to ``result_path``."""
+    out = {}
+    try:
+        from repro_torch.launch.dryrun import analyze_cell, fake_world
+        from repro_torch.launch.mesh import make_production_mesh
+
+        rows = []
+        for multi_pod in (False, True):
+            with fake_world(512 if multi_pod else 256):
+                mesh = make_production_mesh(multi_pod=multi_pod, device="cpu")
+                for arch, shape in DRYRUN_CELLS:
+                    rows.append(analyze_cell(arch, shape, multi_pod=multi_pod, mesh=mesh))
+        out = {"rows": rows}
+    except BaseException:  # the parent fails the phase with it
+        out = {"error": traceback.format_exc()}
+    finally:
+        Path(result_path).write_text(json.dumps(out))
+
+
+def _dryrun_programs() -> list:
+    """[(label, cfg, one-card shape, card args)] of the calibration programs:
+    the per-device programs of ``DRYRUN_CELLS`` on the 16x16 mesh, full width
+    and depth, bf16, random weights from seed 0."""
+    import dataclasses
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.dryrun import clamp_accum
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.step import init_train_state
+
+    out = []
+    for arch, name in DRYRUN_CELLS:
+        cfg, shape = get_config(arch), SHAPES[name]
+        shape = dataclasses.replace(shape, global_batch=shape.global_batch // DRYRUN_DATA_RANKS)
+        params = lm.flat_params(lm.init_lm(cfg, seed=0, device="cuda"))
+        if shape.kind == "train":
+            cfg = cfg.replace(grad_accum=clamp_accum(
+                cfg, SHAPES[name], DRYRUN_DATA_RANKS * DRYRUN_MODEL_AXIS, DRYRUN_MODEL_AXIS))
+            state = init_train_state(params, AdamWConfig(state_dtype=cfg.opt_state_dtype))
+            args = (state, lm_batch(cfg, shape.global_batch, shape.seq_len, seed=0))
+        else:
+            rng = np.random.default_rng(0)
+            tokens = rng.integers(0, cfg.vocab_size, (shape.global_batch, shape.seq_len))
+            args = (params, {"tokens": torch.from_numpy(tokens.astype(np.int32)).cuda()})
+        out.append((f"{arch} {name}", cfg, shape, args))
+        del params
+    return out
+
+
+def _calibrate(label, cfg, shape, args, meta) -> tuple[dict, dict]:
+    """Run one calibration program on the card (warm-up, the main run timed
+    with the launch counts set to 0 just before and read just after and the
+    peak memory, a traced run, a run under ``op_analysis``) and hold it
+    against ``meta``, its reckoning on meta tensors.  Returns (row, counts)."""
+    from repro_torch.launch import dryrun, op_analysis, roofline
+
+    fn, _ = dryrun.cell_program(cfg, shape, None, dryrun.impls("pallas"),
+                                model_axis=DRYRUN_MODEL_AXIS)
+
+    def run():
+        fn(*args)
+
+    run()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    others = torch.cuda.memory_allocated() - op_analysis.storage_bytes(args, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    wall_ms = host_ms(run, repeats=1)
+    counts = read_counts()
+    card_peak = torch.cuda.max_memory_allocated() - others
+    busy = device_time(lambda: profiled_run(run, cpu=False), wall_ms, 1)
+    t0 = time.perf_counter()
+    card = op_analysis.program_stats(fn, *args)
+    counted_s = time.perf_counter() - t0
+    report = roofline.analyze(cfg.name, shape.name, "1 card", 1, card,
+                              roofline.model_flops(cfg, shape))
+    bound_ms = report.step_time_s * 1e3
+    measured = busy["device_ms"] or wall_ms
+    calls = {k: card["kernels"].get(k, {}).get("calls", 0) for k in counts}
+    row = {
+        "program": label, "rows": shape.global_batch, "seq_len": shape.seq_len,
+        "grad_accum": cfg.grad_accum if shape.kind == "train" else None,
+        "layers": cfg.num_layers, "param_dtype": cfg.param_dtype,
+        "wall_ms": wall_ms, "device_ms": busy["device_ms"],
+        "device_busy_share": busy["busy_share"], "top_kernels": busy["top"],
+        "bound_ms": bound_ms, "bound_by": report.bottleneck,
+        "compute_ms": report.compute_term_s * 1e3, "memory_ms": report.memory_term_s * 1e3,
+        "bound_share": bound_ms / measured,
+        "peak_gb_card": card_peak / 1e9, "peak_gb_reckoned": meta["peak_bytes"] / 1e9,
+        "peak_ratio": meta["peak_bytes"] / card_peak,
+        "dot_flops_by_dtype": card["dot_flops_by_dtype"],
+        "traffic_bytes": card["traffic_bytes"], "ops": card["ops"],
+        "kernel_work": card["kernels"], "launches": counts, "counted_run_s": counted_s,
+    }
+    log(f"[dryrun] {label}: {json.dumps(row)}")
+    checks = {
+        "dot FLOPs by dtype": (card["dot_flops_by_dtype"], meta["dot_flops_by_dtype"]),
+        "traffic bytes": (card["traffic_bytes"], meta["traffic_bytes"]),
+        "kernel work": (card["kernels"], meta["kernels"]),
+        "launches against the reckoned calls": (counts, calls),
+    }
+    def floats(x):  # the reckoning's scaled counts come back as ints or floats
+        return {k: floats(v) for k, v in x.items()} if isinstance(x, dict) else float(x)
+
+    for what, (got, want) in checks.items():
+        if floats(got) != floats(want):
+            raise AssertionError(f"{label}: {what} on the card {got}, reckoned {want}")
+    if not any(counts.values()):
+        raise AssertionError(f"{label}: no kernel launched")
+    if abs(row["peak_ratio"] - 1) > DRYRUN_PEAK_TOL:
+        raise AssertionError(f"{label}: reckoned peak {row['peak_gb_reckoned']:.3f} GB, card "
+                             f"{row['peak_gb_card']:.3f} GB")
+    if row["bound_share"] > DRYRUN_MAX_SHARE:
+        raise AssertionError(f"{label}: bound {bound_ms:.2f} ms above the measured "
+                             f"{measured:.2f} ms: the count misses work")
+    return row, counts
+
+
+def phase_dryrun() -> tuple[list, dict]:
+    """The ``dryrun`` phase: ``DRYRUN_CELLS`` reckoned in a spawned child (the
+    fake process groups live and die with it) while this process reckons the
+    calibration programs on meta tensors; then each program on the card
+    against its reckoning.  Returns the ``dryrun`` line's rows and {kernel:
+    {path: launches}}."""
+    import multiprocessing as mp
+
+    from repro_torch.launch import dryrun
+
+    rows, launches = [], {name: {} for name in counters()}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as tmp:
+        result = Path(tmp) / "result.json"
+        proc = mp.get_context("spawn").Process(target=_dryrun_child, args=(str(result),),
+                                               name="chip-smoke-dryrun")
+        proc.start()
+        try:
+            programs = _dryrun_programs()
+            metas = {}
+            for label, cfg, shape, _ in programs:
+                t0 = time.perf_counter()
+                metas[label], how = dryrun.reckon(cfg, shape, None, dryrun.impls("pallas"),
+                                                  model_axis=DRYRUN_MODEL_AXIS)
+                log(f"[dryrun] {label} reckoned on meta in {time.perf_counter() - t0:.1f}s: "
+                    f"{json.dumps(how)}")
+        finally:
+            proc.join(DRYRUN_TIMEOUT_S)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+                raise AssertionError(f"the dryrun child outlived {DRYRUN_TIMEOUT_S} s")
+        out = json.loads(result.read_text()) if result.exists() else {}
+    if "error" in out:
+        raise AssertionError(f"the dryrun child failed:\n{out['error']}")
+    if proc.exitcode != 0 or "rows" not in out:
+        raise AssertionError(f"the dryrun child exited {proc.exitcode} with no result")
+    cells = {(r["arch"], r["shape"], r["mesh"]): r for r in out["rows"]}
+    for r in cells.values():
+        log(f"[dryrun] {dryrun.fmt_row(r)}")
+        if r["status"] != "ok":
+            raise AssertionError(f"dry run cell {r['arch']} {r['shape']} {r['mesh']}: {r}")
+        rf, m = r["roofline"], r["memory"]
+        rows.append({"cell": f"{r['arch']} {r['shape']}", "mesh": r["mesh"],
+                     "per_device_gb": m["per_device_gb"], "fits_80gb": m["fits_80gb"],
+                     "bound_ms": max(rf["compute_s"], rf["memory_s"], rf["collective_s"]) * 1e3,
+                     "bottleneck": rf["bottleneck"], "useful_ratio": rf["useful_ratio"],
+                     "dot_flops": r["op_stats"]["dot_flops"],
+                     "collective_bytes": r["collectives"]["total"],
+                     "grad_accum": r["grad_accum"], "reckon_s": r["reckon_s"]})
+    for label, cfg, shape, args in programs:
+        row, counts = _calibrate(label, cfg, shape, args, metas[label])
+        arch, name = label.split()
+        mesh_cell = cells[arch, name, "16x16"]
+        row["mesh_cell_dot_flops"] = mesh_cell["op_stats"]["dot_flops"]
+        if mesh_cell["op_stats"]["dot_flops"] != sum(row["dot_flops_by_dtype"].values()):
+            raise AssertionError(f"{label}: the 16x16 cell's dot FLOPs a device "
+                                 f"{row['mesh_cell_dot_flops']} differ from the card's "
+                                 f"{row['dot_flops_by_dtype']}")
+        rows.append(row)
+        for name_, n in counts.items():
+            launches[name_][f"dryrun {label}"] = n
+        del args
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3393,6 +3624,10 @@ def main() -> int:
         done("sharded")
         for name, by_path in sharded_launches.items():
             launches[name].update(by_path)
+        dryrun_rows, dryrun_launches = phase_dryrun()
+        done("dryrun")
+        for name, by_path in dryrun_launches.items():
+            launches[name].update(by_path)
         rows = phase_report(launches, worst, worst_bwd, library_device_ms)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
@@ -3405,6 +3640,7 @@ def main() -> int:
     print(json.dumps({"dist_tier_serve": dist_rows}), flush=True)
     print(json.dumps({"stream_train": stream_rows}), flush=True)
     print(json.dumps({"sharded": sharded_rows}), flush=True)
+    print(json.dumps({"dryrun": dryrun_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

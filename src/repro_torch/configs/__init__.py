@@ -4,7 +4,8 @@ minitron-8b and llama3-405b, the moe qwen2-moe-a2.7b and
 phi3.5-moe-42b-a6.6b, the vlm llava-next-mistral-7b, the hybrid hymba-1.5b,
 the ssm falcon-mamba-7b and the encdec whisper-medium: all ten of the JAX
 package's."""
-from repro_torch.configs.base import ModelConfig, get_config, list_configs, register
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig, get_config,
+                                      list_configs, register)
 
 from repro_torch.configs import deepseek_7b  # noqa: F401  (registers its CONFIG)
 from repro_torch.configs import falcon_mamba_7b  # noqa: F401
@@ -19,4 +20,5 @@ from repro_torch.configs import whisper_medium  # noqa: F401
 
 ARCH_IDS = list_configs()
 
-__all__ = ["ModelConfig", "ARCH_IDS", "get_config", "list_configs", "register"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "ARCH_IDS", "get_config", "list_configs",
+           "register"]

@@ -3,14 +3,15 @@
 The port's own copy of the JAX package's ``configs/base.py``: the same
 fields with the same defaults, so a configuration reads the same on both
 sides.  ``reduced()`` gives the CPU-test variant of an architecture (same
-family and wiring, tiny dimensions).
+family and wiring, tiny dimensions); the four input-shape cells of the dry
+run are the ``ShapeConfig`` cells of ``SHAPES``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
-__all__ = ["ModelConfig", "register", "get_config", "list_configs"]
+__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "register", "get_config", "list_configs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,17 @@ class ModelConfig:
     @property
     def resolved_dt_rank(self) -> int:
         return self.ssm_dt_rank or math.ceil(self.d_model / 16)
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch serve 500k-token contexts? (SSM state or window cache)"""
+        return self.family == "ssm" or (
+            self.family == "hybrid" and self.sliding_window > 0
+        )
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
@@ -150,6 +162,29 @@ class ModelConfig:
             compute_dtype="float32",
             grad_accum=1,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    #: 'train' runs the train step; 'prefill' runs prefill; 'decode' runs one
+    #: decode step with a seq_len-deep KV cache.
+    kind: str
+
+    def reduced(self) -> "ShapeConfig":
+        return dataclasses.replace(
+            self, seq_len=min(self.seq_len, 64), global_batch=min(self.global_batch, 4)
+        )
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 _REGISTRY: dict[str, ModelConfig] = {}

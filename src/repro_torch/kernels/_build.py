@@ -40,7 +40,10 @@ _sms = {}
 
 
 def device_sms(device) -> int:
-    """SMs of a CUDA device (cached): the card a launch plan is made for."""
+    """SMs of a CUDA device (cached): the card a launch plan is made for; an
+    H100's ``SMS`` for the meta device (the dry run reckons for the card)."""
+    if device.type == "meta":
+        return SMS
     if device.index not in _sms:
         _sms[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
     return _sms[device.index]

@@ -14,7 +14,10 @@ wrappers validate the inputs, allocate outputs and scratch and raise if a
 launch is refused.  ``flash_attention`` is a ``torch.autograd.Function``
 where grad is enabled and an input requires it, and the plain forward call
 otherwise (serving: no log-sum-exp is written).  ``launches`` and
-``bwd_launches`` count successful forward and backward launches.
+``bwd_launches`` count successful forward and backward launches.  On meta
+tensors (the dry run) the wrappers allocate what a launch would, launch
+nothing and count nothing; on either device they hand each call's work to
+``work.record``.
 
 ``key_tile_range``, ``tile_needs_mask`` and ``query_tile_range`` mirror the
 kernels' loop bounds and mask test in pure Python, so the CPU tests can hold
@@ -28,7 +31,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._build import SMS, device_sms
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd", "launches",
@@ -175,8 +178,8 @@ def bwd_gqa_splits(b: int, h: int, kh: int, sq: int, sk: int, causal: bool, wind
 
 def _check(q, k, v, window):
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not (t.is_cuda or t.is_meta):
+            raise ValueError(f"{name} must be a CUDA tensor (or meta), got {t.device}")
         if t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype}, q is {q.dtype}")
         if t.dim() != 4:
@@ -211,22 +214,25 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     [B, H, Sq], else None)."""
     global launches
     _check(q, k, v, window)
-    fn, err_str = _kernel()
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     o = torch.empty_like(q)
     lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None if lse is None else lse.data_ptr(),
-                 b, h, kh, sq, sk, hd, int(causal), int(window),
-                 int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention launch failed: {err_str(err).decode()} ({err})")
-    launches += 1
+    if not q.is_meta:
+        fn, err_str = _kernel()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                     None if lse is None else lse.data_ptr(),
+                     b, h, kh, sq, sk, hd, int(causal), int(window),
+                     int(q.dtype == torch.bfloat16), 1.0 / math.sqrt(hd), stream)
+        if err:
+            raise RuntimeError(
+                f"flash_attention launch failed: {err_str(err).decode()} ({err})")
+        launches += 1
+    work.record("flash_attention", work.attention(b, h, kh, sq, sk, hd, causal, window,
+                                                  q.element_size(), lse=with_lse), q.dtype)
     return o, lse
 
 
@@ -244,7 +250,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
             not o.is_contiguous() or o.data_ptr() % 16:
         raise ValueError(f"o {tuple(o.shape)} / do {tuple(do.shape)} {do.dtype} / lse "
                          f"{tuple(lse.shape)} do not fit q {tuple(q.shape)} {q.dtype}")
-    fn, err_str = _bwd_kernel()
     b, h, sq, hd = q.shape
     kh, sk = k.shape[1], k.shape[2]
     bf16 = q.dtype == torch.bfloat16
@@ -255,16 +260,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     part = (torch.empty((2, splits, b * kh, sk, hd), dtype=torch.float32, device=q.device)
             if splits > 1 else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), None if part is None else part.data_ptr(), b, h, kh, sq, sk,
-                 hd, int(causal), int(window), splits, int(bf16), 1.0 / math.sqrt(hd), stream)
-    if err:
-        raise RuntimeError(
-            f"flash_attention_bwd launch failed: {err_str(err).decode()} ({err})")
-    bwd_launches += 1
+    if not q.is_meta:
+        fn, err_str = _bwd_kernel()
+        with torch.cuda.device(q.device):
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                     dv.data_ptr(), None if part is None else part.data_ptr(), b, h, kh, sq,
+                     sk, hd, int(causal), int(window), splits, int(bf16), 1.0 / math.sqrt(hd),
+                     stream)
+        if err:
+            raise RuntimeError(
+                f"flash_attention_bwd launch failed: {err_str(err).decode()} ({err})")
+        bwd_launches += 1
+    work.record("flash_attention_bwd", work.attention_bwd(b, h, kh, sq, sk, hd, causal, window,
+                                                          q.element_size()), q.dtype)
     return dq, dk, dv
 
 

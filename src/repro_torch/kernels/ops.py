@@ -2,7 +2,11 @@
 
 A CUDA tensor goes to the kernel; a CPU tensor goes to the kernel's plain
 version in ``ref.py``.  There is no fallback: a kernel that cannot take a
-CUDA input raises.  On the card each op is differentiable through its
+CUDA input raises.  A meta tensor (the dry run, ``launch/dryrun.py``) takes
+the kernel's own wrapper, which returns empty meta outputs of the kernel's
+shapes and dtypes and records the kernel's work (``kernels/work.py``),
+forward and backward: nothing is computed, and nothing is counted as a
+launch.  On the card each op is differentiable through its
 backward kernel; on the CPU through autograd of the plain version.  The
 counts of kernel launches live on each kernel's wrapper
 (``repro_torch.kernels.flash_attention.launches`` and ``.bwd_launches``,
@@ -19,10 +23,10 @@ __all__ = ["flash_attention", "selective_scan", "rms_norm"]
 
 
 def _on_cpu(t, op: str) -> bool:
-    if t.is_cuda:
+    if t.is_cuda or t.is_meta:
         return False
     if t.device.type != "cpu":
-        raise ValueError(f"{op} runs on cuda or cpu, not {t.device}")
+        raise ValueError(f"{op} runs on cuda, cpu or meta, not {t.device}")
     return True
 
 

@@ -9,7 +9,10 @@ Both launch on PyTorch's current stream, allocate nothing and do not
 synchronise; these wrappers validate the inputs, allocate outputs and
 scratch and raise if a launch is refused.  ``rms_norm`` is a
 ``torch.autograd.Function`` where grad is enabled and an input requires it.
-``launches`` and ``bwd_launches`` count successful launches.
+``launches`` and ``bwd_launches`` count successful launches.  On meta
+tensors (the dry run) the wrappers allocate what a launch would, launch
+nothing and count nothing; on either device they hand each call's work to
+``work.record``.
 
 ``launch_shape`` and ``bwd_launch_shape`` pick the kernels' instantiations
 and grids in pure Python, so the CPU tests reach them.
@@ -22,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 __all__ = ["rms_norm", "rms_norm_fwd", "rms_norm_bwd", "launches", "bwd_launches", "DTYPES",
            "MAX_D", "PER_LANE", "WARPS", "ROWS_PER_WARP", "MAX_BLOCKS", "BWD_PER_LANE",
@@ -151,8 +154,8 @@ def _kernel():
 
 def _check(x, scale):
     for name, t in (("x", x), ("scale", scale)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not (t.is_cuda or t.is_meta):
+            raise ValueError(f"{name} must be a CUDA tensor (or meta), got {t.device}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -191,7 +194,6 @@ def rms_norm_bwd(x, scale, dy, *, eps: float = 1e-6):
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not fit x "
                          f"{tuple(x.shape)} {x.dtype}")
-    fn, err_str = _bwd_kernel()
     d = x.shape[-1]
     rows = x.numel() // d
     dx = torch.empty_like(x)
@@ -200,16 +202,20 @@ def rms_norm_bwd(x, scale, dy, *, eps: float = 1e-6):
     shape = bwd_launch_shape(rows, d, x.dtype, aligned=aligned,
                              sms=_build.device_sms(x.device))
     partial = torch.empty((shape.blocks, d), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-                 partial.data_ptr(), ds.data_ptr(), rows, d,
-                 int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-                 int(shape.vec), shape.per_lane, shape.split, shape.warps, shape.blocks, eps,
-                 stream)
-    if err:
-        raise RuntimeError(f"rms_norm_bwd launch failed: {err_str(err).decode()} ({err})")
-    bwd_launches += 1
+    if not x.is_meta:
+        fn, err_str = _bwd_kernel()
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+                     partial.data_ptr(), ds.data_ptr(), rows, d,
+                     int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+                     int(shape.vec), shape.per_lane, shape.split, shape.warps, shape.blocks,
+                     eps, stream)
+        if err:
+            raise RuntimeError(f"rms_norm_bwd launch failed: {err_str(err).decode()} ({err})")
+        bwd_launches += 1
+    work.record("rms_norm_bwd", work.norm_bwd(rows, d, x.element_size(), scale.element_size()),
+                x.dtype)
     return dx, ds
 
 
@@ -241,18 +247,21 @@ def rms_norm_fwd(x, scale, *, eps: float = 1e-6):
     """The forward kernel alone."""
     global launches
     _check(x, scale)
-    fn, err_str = _kernel()
     d = x.shape[-1]
     rows = x.numel() // d
     out = torch.empty_like(x)
-    aligned = not (x.data_ptr() % 16 or scale.data_ptr() % 16 or out.data_ptr() % 16)
-    shape = launch_shape(rows, d, x.dtype, aligned=aligned)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
-                 int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
-                 int(shape.vec), shape.per_lane, shape.blocks, eps, stream)
-    if err:
-        raise RuntimeError(f"rms_norm launch failed: {err_str(err).decode()} ({err})")
-    launches += 1
+    if not x.is_meta:
+        fn, err_str = _kernel()
+        aligned = not (x.data_ptr() % 16 or scale.data_ptr() % 16 or out.data_ptr() % 16)
+        shape = launch_shape(rows, d, x.dtype, aligned=aligned)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = fn(x.data_ptr(), scale.data_ptr(), out.data_ptr(), rows, d,
+                     int(x.dtype == torch.bfloat16), int(scale.dtype == torch.bfloat16),
+                     int(shape.vec), shape.per_lane, shape.blocks, eps, stream)
+        if err:
+            raise RuntimeError(f"rms_norm launch failed: {err_str(err).decode()} ({err})")
+        launches += 1
+    work.record("rms_norm", work.norm(rows, d, x.element_size(), scale.element_size()),
+                x.dtype)
     return out

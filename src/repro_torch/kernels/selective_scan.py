@@ -10,7 +10,10 @@ not synchronise; these wrappers validate the inputs, allocate outputs and
 scratch and raise if a launch is refused.  ``selective_scan`` is a
 ``torch.autograd.Function`` where grad is enabled and an input requires it
 (``h_last`` is not differentiable: no training path reads it).
-``launches`` and ``bwd_launches`` count successful launches.
+``launches`` and ``bwd_launches`` count successful launches.  On meta
+tensors (the dry run) the wrappers allocate what a launch would, launch
+nothing and count nothing; on either device they hand each call's work to
+``work.record``.
 
 ``launch_plan`` picks the forward kernel's plan for a shape (lanes per
 channel, channels per block, the grid and the shared memory) and
@@ -25,7 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._build import SMS, device_sms
 
 __all__ = ["selective_scan", "selective_scan_fwd", "selective_scan_bwd", "launches",
@@ -183,8 +186,8 @@ def _check(u, dt, a, b_ssm, c_ssm, d_skip, *, backward: bool = False, dy=None):
     named = (("u", u), ("dt", dt), ("a", a), ("b_ssm", b_ssm), ("c_ssm", c_ssm),
              ("d_skip", d_skip))
     for name, t in named:
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+        if not (t.is_cuda or t.is_meta):
+            raise ValueError(f"{name} must be a CUDA tensor (or meta), got {t.device}")
         if t.device != u.device:
             raise ValueError(f"{name} is on {t.device}, u on {u.device}")
         if not t.is_contiguous():
@@ -219,24 +222,28 @@ def selective_scan_fwd(u, dt, a, b_ssm, c_ssm, d_skip, *, checkpoints: bool = Fa
     and is not written), else None)."""
     global launches
     plan = _check(u, dt, a, b_ssm, c_ssm, d_skip)
-    fn, err_str = _kernel()
     bsz, s, di = u.shape
     n = a.shape[1]
     y = torch.empty((bsz, s, di), dtype=torch.float32, device=u.device)
     h_last = torch.empty((bsz, di, n), dtype=torch.float32, device=u.device)
     hck = (torch.empty((bsz, -(-s // CKPT_STEPS), di, n), dtype=torch.float32,
                        device=u.device) if checkpoints else None)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b_ssm.data_ptr(),
-                 c_ssm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h_last.data_ptr(),
-                 None if hck is None else hck.data_ptr(),
-                 bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
-                 int(u.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(
-            f"selective_scan launch failed: {err_str(err).decode()} ({err})")
-    launches += 1
+    if not u.is_meta:
+        fn, err_str = _kernel()
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            err = fn(u.data_ptr(), dt.data_ptr(), a.data_ptr(), b_ssm.data_ptr(),
+                     c_ssm.data_ptr(), d_skip.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+                     None if hck is None else hck.data_ptr(),
+                     bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
+                     int(u.dtype == torch.bfloat16), stream)
+        if err:
+            raise RuntimeError(
+                f"selective_scan launch failed: {err_str(err).decode()} ({err})")
+        launches += 1
+    work.record("selective_scan", work.scan(bsz, s, di, n, u.element_size(),
+                                            ckpt_steps=CKPT_STEPS if checkpoints else 0),
+                u.dtype)
     return y, h_last, hck
 
 
@@ -253,7 +260,6 @@ def selective_scan_bwd(u, dt, a, b_ssm, c_ssm, d_skip, hck, dy):
             hck.shape != (bsz, -(-s // CKPT_STEPS), di, n) or not hck.is_contiguous():
         raise ValueError(f"dy {tuple(dy.shape)} or checkpoints {tuple(hck.shape)} do not "
                          f"fit u {tuple(u.shape)}, N={n}")
-    fn, err_str = _bwd_kernel()
     du, ddt = torch.empty_like(u), torch.empty_like(dt)
     db, dc = torch.empty_like(b_ssm), torch.empty_like(c_ssm)
     da, dd = torch.empty_like(a), torch.empty_like(d_skip)
@@ -262,17 +268,21 @@ def selective_scan_bwd(u, dt, a, b_ssm, c_ssm, d_skip, hck, dy):
     dc_part = torch.empty((plan.grid[0], bsz, s, n), **f32)
     da_part = torch.empty((bsz, di, n), **f32)
     dd_part = torch.empty((bsz, di), **f32)
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream(u.device).cuda_stream
-        err = fn(*(t.data_ptr() for t in (
-                     u, dt, a, b_ssm, c_ssm, d_skip, hck, dy, du, ddt, da, db, dc, dd,
-                     db_part, dc_part, da_part, dd_part)),
-                 bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
-                 int(u.dtype == torch.bfloat16), stream)
-    if err:
-        raise RuntimeError(
-            f"selective_scan_bwd launch failed: {err_str(err).decode()} ({err})")
-    bwd_launches += 1
+    if not u.is_meta:
+        fn, err_str = _bwd_kernel()
+        with torch.cuda.device(u.device):
+            stream = torch.cuda.current_stream(u.device).cuda_stream
+            err = fn(*(t.data_ptr() for t in (
+                         u, dt, a, b_ssm, c_ssm, d_skip, hck, dy, du, ddt, da, db, dc, dd,
+                         db_part, dc_part, da_part, dd_part)),
+                     bsz, s, di, n, plan.lanes, plan.per_lane, int(plan.vec),
+                     int(u.dtype == torch.bfloat16), stream)
+        if err:
+            raise RuntimeError(
+                f"selective_scan_bwd launch failed: {err_str(err).decode()} ({err})")
+        bwd_launches += 1
+    work.record("selective_scan_bwd", work.scan_bwd(bsz, s, di, n, u.element_size(),
+                                                    ckpt_steps=CKPT_STEPS), u.dtype)
     return du, ddt, da, db, dc, dd
 
 

@@ -39,22 +39,26 @@ def init_encdec(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     """Random params in the JAX package's layout, from a seeded
     ``torch.Generator`` on ``device`` (not bit-equal to ``jax.random``).
     LayerNorm scales start at one and every bias at zero, as in the JAX
-    init."""
+    init.  On ``device="meta"`` the leaves have their shapes and dtypes and
+    no values (no generator is drawn from)."""
     if cfg.family != "encdec":
         raise NotImplementedError(f"{cfg.name} is not an encoder-decoder")
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = device.type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     pd = _dtype(cfg.param_dtype)
     d, hd, f = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
     h, k = cfg.num_heads, cfg.num_kv_heads
 
     def normal(shape, scale):
+        if meta:
+            return torch.empty(shape, dtype=pd, device=device)
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (x * scale).to(pd)
 
     def stacked(n, shape, scale):
         out = torch.empty((n, *shape), dtype=pd, device=device)
-        for i in range(n):
+        for i in range(0 if meta else n):
             out[i] = normal(shape, scale)
         return out
 

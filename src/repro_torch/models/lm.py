@@ -95,21 +95,25 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     Norm scales and biases start at zero, as in the JAX init; the moe router
     is f32 whatever ``param_dtype`` is.  Stacked leaves are drawn one layer
     at a time, so no f32 temporary is larger than one layer's slice of a
-    leaf."""
+    leaf.  On ``device="meta"`` the leaves have their shapes and dtypes and
+    no values (no generator is drawn from): the dry run's params."""
     check_supported(cfg)
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    meta = device.type == "meta"
+    gen = None if meta else torch.Generator(device=device).manual_seed(seed)
     pd = _dtype(cfg.param_dtype)
     n, d, hd = cfg.num_layers, cfg.d_model, cfg.resolved_head_dim
     h, k, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
 
     def normal(shape, scale, dtype=pd):
+        if meta:
+            return torch.empty(shape, dtype=dtype, device=device)
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (x * scale).to(dtype)
 
     def stacked(shape, scale, dtype=pd):
         out = torch.empty((n, *shape), dtype=dtype, device=device)
-        for i in range(n):
+        for i in range(0 if meta else n):
             out[i] = normal(shape, scale, dtype)
         return out
 

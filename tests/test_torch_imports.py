@@ -58,7 +58,9 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.obs.metrics", "repro_torch.obs.report",
                  "repro_torch.serve.tenant_load", "repro_torch.stream",
                  "repro_torch.distributed.sharding", "repro_torch.distributed.fsdp",
-                 "repro_torch.launch.mesh",
+                 "repro_torch.launch.mesh", "repro_torch.launch.specs",
+                 "repro_torch.launch.roofline", "repro_torch.launch.op_analysis",
+                 "repro_torch.launch.dryrun", "repro_torch.kernels.work",
                  "repro_torch.stream.ingest", "repro_torch.stream.windows",
                  "repro_torch.stream.driver", "repro_torch.stream.distributed"):
         assert name in report["imported"]
