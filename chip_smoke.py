@@ -160,8 +160,26 @@ Phases, all run in order, each of which must pass:
                reckoned peak ``max_memory_allocated`` within
                ``DRYRUN_PEAK_TOL``, the roofline bound at most
                ``DRYRUN_MAX_SHARE`` of the device time, and the 16x16
-               cell's dot FLOPs a device the card's.  Prints a
+               cell's dot FLOPs a device the closed form of the card's
+               split along ``model`` (``whole_dot_flops``).  Prints a
                ``{"dryrun": [...]}`` line;
+     tp      — tensor parallelism along ``model``: two spawned model ranks
+               of a (data 1, model 2) mesh on the one card over gloo train
+               (``launch.train.make_step(mesh=)``) and serve
+               (``ServeEngine(mesh=)``) ``TP_MODELS`` in bf16 while a third
+               process reckons their programs on meta tensors; rank 0 then
+               runs the plain bf16 and f32 programs.  Each rank's dot FLOPs
+               and kernel work (``op_analysis`` on the card) must equal the
+               reckoning, which must equal the plain program's whole parts
+               and half the rest; every K2 and K3 launch takes the rank's
+               heads and channels, the launch counts are the plain run's,
+               each rank's peak lies below the plain run's, every K2 and K3
+               input rank 0 met is held, through the kernel and its backward,
+               against the plain version at ``TOL`` and ``TOL_BWD``, and
+               losses (their mean over the steps), params and logits drift
+               from the f32 run at most ``BF16_DRIFT_RATIO`` times the plain
+               bf16 run's (greedy tokens equal where the plain top-2 margin
+               exceeds that).  Prints a ``{"tp": [...]}`` line;
   7. report  — a ``{"kernels": [...]}`` JSON line (times are CUDA-event
                medians of CUDA-graph replays at the serving shapes; the
                attention row adds its TFLOP/s, the share of computed scores
@@ -481,6 +499,21 @@ DRYRUN_PEAK_TOL = 0.10
 #: the largest roofline bound / measured device time that passes: a count
 #: that misses work gives a bound above the time the card took
 DRYRUN_MAX_SHARE = 1.05
+
+# Tensor parallelism (``repro_torch.distributed.tensor_parallel``): two model
+# ranks of a (data 1, model 2) mesh, two processes on the one card over a
+# gloo group (NCCL refuses two ranks on one device), bf16, random weights
+# from seed 0.  {arch: (layers (None: whole), train steps, serving batch,
+# prompt, decode steps)}.  qwen2-0.5b splits everything: K2 on 7 of 14 query
+# heads and 1 of 2 kv heads, a 2432-wide MLP, 75968 vocabulary columns;
+# hymba-1.5b's 25 heads and 32001 vocabulary do not divide 2, so its
+# attention and logits run whole on both ranks, K3 on 1600 of 3200
+# channels and a 2752-wide MLP.  Each trains on lm_train's 16 rows of 2048
+# tokens a step in its config's microbatches.
+TP_MODELS = {"qwen2-0.5b": (None, 2, 4, 1536, 32), "hymba-1.5b": (8, 2, 4, 1536, 0)}
+TP_ROWS, TP_SEQ = 16, 2048
+TP_RANKS = 2
+TP_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -3554,10 +3587,19 @@ def phase_dryrun() -> tuple[list, dict]:
         row, counts = _calibrate(label, cfg, shape, args, metas[label])
         arch, name = label.split()
         mesh_cell = cells[arch, name, "16x16"]
+        # the cell's device splits along model what its plan splits: its dot
+        # FLOPs are the card's whole parts and a 16th of the rest
+        parts = split_parts(cfg, DRYRUN_MODEL_AXIS, DRYRUN_DATA_RANKS)
+        whole = whole_dot_flops(cfg, parts, shape.global_batch, shape.seq_len, shape.kind,
+                                _k2_dot(row["kernel_work"]))
         row["mesh_cell_dot_flops"] = mesh_cell["op_stats"]["dot_flops"]
-        if mesh_cell["op_stats"]["dot_flops"] != sum(row["dot_flops_by_dtype"].values()):
+        row["mesh_cell_parts"] = parts
+        row["mesh_cell_closed_form"] = split_dot_flops(
+            sum(row["dot_flops_by_dtype"].values()), whole, DRYRUN_MODEL_AXIS)
+        if row["mesh_cell_dot_flops"] != row["mesh_cell_closed_form"]:
             raise AssertionError(f"{label}: the 16x16 cell's dot FLOPs a device "
-                                 f"{row['mesh_cell_dot_flops']} differ from the card's "
+                                 f"{row['mesh_cell_dot_flops']} differ from the closed form "
+                                 f"{row['mesh_cell_closed_form']} of the card's "
                                  f"{row['dot_flops_by_dtype']}")
         rows.append(row)
         for name_, n in counts.items():
@@ -3565,6 +3607,591 @@ def phase_dryrun() -> tuple[list, dict]:
         del args
         gc.collect()
         torch.cuda.empty_cache()
+    return rows, launches
+
+
+# -- tensor parallelism: two model ranks on the one card --------------------------
+
+
+class _PlanMesh:
+    """What ``tensor_parallel.split_plan`` reads of a (data, model) mesh, for
+    a plan read without a process group."""
+
+    def __init__(self, shape):
+        self.shape, self.mesh_dim_names = tuple(shape), ("data", "model")
+
+    def size(self, d=None):
+        return math.prod(self.shape) if d is None else self.shape[d]
+
+    def get_group(self, name):
+        return None
+
+    def get_local_rank(self, name):
+        return 0
+
+
+def split_parts(cfg, model_axis: int, data_axis: int = 1) -> dict:
+    """{part: whether it splits} of ``cfg``'s plan on a (data, model) mesh."""
+    from repro_torch.distributed import tensor_parallel as tp
+    from repro_torch.models import lm
+
+    plan = tp.split_plan(cfg, lm.flat_params(lm.init_lm(cfg, device="meta")),
+                         _PlanMesh((data_axis, model_axis)))
+    return {p: bool(plan is not None and getattr(plan, p))
+            for p in ("attention", "mlp", "mamba", "vocab")}
+
+
+def whole_dot_flops(cfg, parts: dict, rows: int, seq: int, kind: str, k2_dot: int) -> int:
+    """Dot FLOPs of the parts of a one-card program that a split plan leaves
+    whole on every model rank, in closed form: attention's projections
+    (2·d·hd·(2H + 2K) a token and layer) with K2's products (``k2_dot``, the kernels'
+    record), and the logits (2·d·V a position that computes them).  A
+    training step (remat, no two-level scan) runs each four times: forward,
+    remat's recompute (which stops before a block's last product, the MLP's,
+    not before attention's; the chunked CE recomputes its logits) and the
+    backward's two products.  Prefill computes the last position's logits.
+    Every other product of the families that split is linear in a split
+    dim, so the split program computes ``w + (plain - w) / model_axis``
+    (:func:`split_dot_flops`)."""
+    if (not parts["mlp"] and cfg.family in ("dense", "hybrid")) or \
+            (not parts["mamba"] and cfg.family in ("ssm", "hybrid")):
+        raise ValueError("the closed form leaves only attention and the vocabulary whole")
+    train = kind == "train"
+    if train and (not cfg.remat or cfg.scan_block):
+        raise ValueError("the closed form takes remat without a two-level scan")
+    d, hd, h, k = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
+    tokens, out = rows * seq, 0
+    if cfg.family != "ssm" and not parts["attention"]:
+        out += (4 if train else 1) * cfg.num_layers * tokens * 2 * d * hd * (2 * h + 2 * k) \
+            + k2_dot
+    if not parts["vocab"]:
+        out += (4 * tokens if train else rows) * 2 * d * cfg.vocab_size
+    return out
+
+
+def split_dot_flops(plain: int, whole: int, model_axis: int) -> int:
+    """A model rank's dot FLOPs: the whole parts' and its share of the rest."""
+    share, rest = divmod(int(plain) - int(whole), model_axis)
+    if rest:
+        raise AssertionError(f"{plain - whole} split dot FLOPs do not divide by {model_axis}")
+    return int(whole) + share
+
+
+def _k2_dot(kernels: dict) -> int:
+    return int(sum(kernels.get(k, {}).get("dot_flops", 0)
+                   for k in ("flash_attention", "flash_attention_bwd")))
+
+
+@contextlib.contextmanager
+def kernel_shapes(seen: dict, keep: dict | None = None):
+    """Record the (query heads, kv heads) of each K2 forward launch and the
+    channels of each K3 launch (their wrappers' inputs) in ``seen``; with
+    ``keep``, also a host copy of the first inputs of each distinct shape
+    and keywords, and whether autograd will call the backward on them
+    (:func:`tp_kernel_checks`)."""
+    from repro_torch.kernels import ops
+
+    fa, ss = ops.flash_attention, ops.selective_scan
+
+    def kept(name, args, kw):
+        if keep is None:
+            return
+        key = (name, tuple(tuple(a.shape) for a in args), tuple(sorted(kw.items())))
+        # remat runs a block's forward without autograd, then again with it
+        bwd = torch.is_grad_enabled() and any(a.requires_grad for a in args)
+        if key not in keep:
+            keep[key] = {"args": [a.detach().cpu() for a in args], "kw": dict(kw),
+                         "bwd": bwd}
+        keep[key]["bwd"] |= bwd
+
+    def attention(q, k, v, **kw):
+        seen.setdefault("flash_attention", set()).add((int(q.shape[1]), int(k.shape[1])))
+        kept("flash_attention", (q, k, v), kw)
+        return fa(q, k, v, **kw)
+
+    def scan(u, *a, **kw):
+        seen.setdefault("selective_scan", set()).add(int(u.shape[-1]))
+        kept("selective_scan", (u, *a), kw)
+        return ss(u, *a, **kw)
+
+    ops.flash_attention, ops.selective_scan = attention, scan
+    try:
+        yield seen
+    finally:
+        ops.flash_attention, ops.selective_scan = fa, ss
+
+
+def tp_kernel_checks(keep: dict) -> list:
+    """Each K2 and K3 input that :func:`kernel_shapes` kept, through the
+    kernel's wrapper and its plain version at the kernels phase's
+    tolerances (``TOL``), and, where training took its gradient, through
+    the backward kernel and autograd of the plain version (``TOL_BWD``) with
+    a random cotangent.  Raises on a mismatch; returns a row a check."""
+    from repro_torch.kernels import ops, ref
+
+    rows = []
+    for (name, shapes, _), entry in keep.items():
+        args = [a.cuda() for a in entry["args"]]
+        kw = {k: v for k, v in entry["kw"].items() if k != "h0"}
+        label = f"tp {shapes} {kw}"
+        dtype = args[0].dtype
+        if name == "flash_attention":
+            fwd, plain = ops.flash_attention, ref.attention_ref
+        else:
+            fwd, plain = ops.selective_scan, ref.selective_scan_ref
+        with torch.no_grad():
+            got, want = fwd(*args, **kw), plain(*args, **kw)
+        got, want = (got, want) if isinstance(got, tuple) else ([got], [want])
+        row = {"kernel": name, "shapes": [list(s) for s in shapes], **kw,
+               "max_abs_err": _agree(name, label, got, want, dtype)}
+        del got, want
+        if entry["bwd"]:
+            if name == "flash_attention":
+                dy = cotangent(args[0].shape, dtype)
+                want = ref.attention_ref_bwd(*args, dy, **kw)
+            else:
+                dy = cotangent(args[0].shape, torch.float32)
+                want = ref.selective_scan_ref_bwd(*args, dy)
+            got = _grads(lambda *t: fwd(*t, **kw), args, dy)
+            row["bwd_rel_err"] = _agree_grads(f"{name}_bwd", label, got, want, dtype)
+            del got, want
+        rows.append(row)
+        del args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _tp_cfg(arch):
+    from repro_torch.configs import get_config
+
+    layers = TP_MODELS[arch][0]
+    cfg = get_config(arch)
+    return cfg if layers is None else cfg.replace(num_layers=layers)
+
+
+def _host(params: dict) -> dict:
+    return {k: v.float().cpu() for k, v in params.items()}
+
+
+def _drift(got: dict, want: dict) -> dict:
+    """max |got - want| and the L2 norm of got - want over every leaf."""
+    sq, worst = 0.0, 0.0
+    for k in want:
+        d = got[k] - want[k]
+        sq += float(torch.linalg.vector_norm(d)) ** 2
+        worst = max(worst, float(d.abs().max()))
+    return {"max_abs": worst, "l2": math.sqrt(sq)}
+
+
+def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
+    """Train ``TP_MODELS[arch]``'s steps split on the mesh (both ranks; one
+    more step counted by ``op_analysis`` on the card; K2's and K3's inputs
+    kept in ``keep`` on rank 0), then, on rank 0, the plain bf16 run and
+    the plain f32 run from the same init and batches."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import fsdp
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch import train as ltrain
+    from repro_torch.models import lm
+    from repro_torch.train.step import init_train_state
+
+    steps = TP_MODELS[arch][1]
+    args = ltrain.build_parser().parse_args(
+        ["train", "--arch", arch, "--seq-len", str(TP_SEQ), *LM_TRAIN_ARGS,
+         "--steps", str(steps)])
+    batches = [lm_batch(cfg, TP_ROWS, TP_SEQ, seed=i) for i in range(steps)]
+
+    def init():
+        return lm.flat_params(lm.init_lm(cfg, seed=0, device="cuda"))
+
+    def run(step, state, keep=None):
+        seen = {}
+        with kernel_shapes(seen, keep):
+            state, losses, ms, counts, peak = _train_run(step, state, batches)
+        out = {"losses": losses, "step_ms": ms, "launches": counts, "peak_gib": peak,
+               "kernel_shapes": {k: sorted(v) for k, v in seen.items()}}
+        return state, out
+
+    opt, sstep = ltrain.make_step(cfg, args, mesh=mesh)
+    state = init_train_state(init(), opt, mesh=mesh)
+    log(f"[tp] rank {rank} {arch}: split state on the mesh")
+    state, split = run(sstep, state, keep if rank == 0 else None)
+    log(f"[tp] rank {rank} {arch}: split steps {split['step_ms']} ms")
+    s_params = _host({k: fsdp.whole(p) for k, p in state["params"].items()})
+    t0 = time.perf_counter()
+    card = op_analysis.program_stats(sstep, state, batches[0])
+    split["counted_s"] = time.perf_counter() - t0
+    split["card"] = {k: card[k] for k in ("dot_flops", "dot_flops_by_dtype", "kernels",
+                                          "collectives")}
+    log(f"[tp] rank {rank} {arch}: counted step in {split['counted_s']:.1f}s")
+    del state, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"split": split}
+    if rank == 0:
+        _, pstep = ltrain.make_step(cfg, args)
+        state, out["plain"] = run(pstep, init_train_state(init(), opt))
+        p_params = _host(state["params"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        _, fstep = ltrain.make_step(cfg32, args)
+        state, out["f32"] = run(fstep, init_train_state(
+            {k: v.float() for k, v in init().items()}, opt))
+        f_params = _host(state["params"])
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["params_split_f32"] = _drift(s_params, f_params)
+        out["params_plain_f32"] = _drift(p_params, f_params)
+        out["params_split_plain"] = _drift(s_params, p_params)
+        del p_params, f_params
+    del s_params
+    dist.barrier()
+    return out
+
+
+def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
+    """Prefill and greedy decode through a model rank's engine (both ranks;
+    the prefill counted by ``op_analysis`` on the card; K2's and K3's
+    inputs kept in ``keep`` on rank 0), then on rank 0 the plain bf16 and
+    f32 engines fed the split run's tokens."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import op_analysis
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    _, _, batch, prompt, gen = TP_MODELS[arch]
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt))
+    max_len = prompt + gen + 1
+
+    def serve(eng, tokens=None, keep=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen = {}
+        reset_counts()
+        with kernel_shapes(seen, keep):
+            logits, cache = eng.prefill(prompts)
+            outs, chosen = [logits.float().cpu()], []
+            for i in range(gen):
+                tok = torch.argmax(logits, dim=-1) if tokens is None else tokens[i].cuda()
+                chosen.append(tok.cpu())
+                logits, cache = eng.step(cache, tok)
+                outs.append(logits.float().cpu())
+        res = {"launches": read_counts(),
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "kernel_shapes": {k: sorted(v) for k, v in seen.items()},
+               "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
+               "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0}
+        del cache
+        return res, outs, chosen
+
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    eng = ServeEngine(cfg, params, max_len=max_len, mesh=mesh, device="cuda")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    split, s_logits, tokens = serve(eng, keep=keep if rank == 0 else None)
+    log(f"[tp] rank {rank} {arch}: split prefill and {gen} decode steps")
+    tok = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
+
+    def prefill(t):  # as the dry run's program: under no_grad
+        with torch.no_grad():
+            return lm.prefill(eng.params, t, cfg, eng.spec)
+
+    card = op_analysis.program_stats(prefill, tok)
+    split["card"] = {k: card[k] for k in ("dot_flops", "dot_flops_by_dtype", "kernels",
+                                          "collectives")}
+    del eng, card
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"split": split}
+    if rank == 0:
+        eng = ServeEngine(cfg, lm.init_lm(cfg, seed=0, device="cuda"), max_len=max_len,
+                          device="cuda")
+        out["plain"], p_logits, _ = serve(eng, tokens)
+        del eng
+        cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+        eng = ServeEngine(cfg32, _to_f32(lm.init_lm(cfg, seed=0, device="cuda")),
+                          max_len=max_len, device="cuda")
+        out["f32"], f_logits, _ = serve(eng, tokens)
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = []
+        for s_, p_, f_ in zip(s_logits, p_logits, f_logits):
+            top2 = torch.topk(p_, 2, dim=-1).values
+            steps.append({"split_f32": float((s_ - f_).abs().max()),
+                          "plain_f32": float((p_ - f_).abs().max()),
+                          "split_plain": float((s_ - p_).abs().max()),
+                          "margins": (top2[:, 0] - top2[:, 1]).tolist(),
+                          "same_token": (s_.argmax(-1) == p_.argmax(-1)).tolist(),
+                          "finite": bool(torch.isfinite(s_).all())})
+        out["logits"] = steps
+    dist.barrier()
+    return out
+
+
+def _tp_rank(rank: int, init_file: str, result_path: str) -> None:
+    """One model rank of the ``tp`` phase: joins the 2-rank gloo group, runs
+    ``TP_MODELS`` on the (1, 2) mesh; writes {arch: results} (or the
+    traceback) as JSON to ``result_path``."""
+    import faulthandler
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    faulthandler.enable()  # a fatal signal prints the rank's stack
+    out, keep = {}, {}
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                                world_size=TP_RANKS, rank=rank)
+        mesh = init_device_mesh("cuda", (1, TP_RANKS), mesh_dim_names=("data", "model"))
+        for arch in TP_MODELS:
+            cfg = _tp_cfg(arch)
+            t0 = time.perf_counter()
+            keep[arch] = {}
+            out[arch] = {"train": _tp_train(arch, cfg, mesh, rank, keep[arch])}
+            out[arch]["train_s"] = time.perf_counter() - t0
+            out[arch]["serve"] = _tp_serve(arch, cfg, mesh, rank, keep[arch])
+            out[arch]["serve_s"] = time.perf_counter() - t0 - out[arch]["train_s"]
+            log(f"[tp] rank {rank} {arch}: train {out[arch]['train_s']:.1f}s, serve "
+                f"{out[arch]['serve_s']:.1f}s")
+        for arch in keep if rank == 0 else ():  # after every launch the runs count
+            t0 = time.perf_counter()
+            out[arch]["kernel_checks"] = tp_kernel_checks(keep[arch])
+            log(f"[tp] {arch}: {len(keep[arch])} kernel inputs checked in "
+                f"{time.perf_counter() - t0:.1f}s")
+    except BaseException:  # the parent fails the phase with it
+        out = {"error": traceback.format_exc()}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        Path(result_path).write_text(json.dumps(out))
+
+
+def _tp_meta_child(result_path: str) -> None:
+    """The ``tp`` phase's reckonings on meta tensors, in a fake group of 2:
+    each model's split (rank 0 of the (1, 2) mesh) and plain train step and
+    prefill; writes {arch: {kind: {run: stats}}} (or the traceback)."""
+    out = {}
+    try:
+        from torch.distributed.device_mesh import init_device_mesh
+
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.launch import dryrun
+
+        with dryrun.fake_world(TP_RANKS):
+            mesh = init_device_mesh("cpu", (1, TP_RANKS), mesh_dim_names=("data", "model"))
+            for arch, (_, _, batch, prompt, _) in TP_MODELS.items():
+                cfg = _tp_cfg(arch)
+                out[arch] = {}
+                for kind, shape in (("train", ShapeConfig("tp", TP_SEQ, TP_ROWS, "train")),
+                                    ("prefill", ShapeConfig("tp", prompt, batch, "prefill"))):
+                    out[arch][kind] = {}
+                    for run, m in (("split", mesh), ("plain", None)):
+                        stats, _ = dryrun.reckon(cfg, shape, m, dryrun.impls("pallas"),
+                                                 scale=False)
+                        out[arch][kind][run] = {k: stats[k] for k in (
+                            "dot_flops", "dot_flops_by_dtype", "kernels", "collectives")}
+    except BaseException:  # the parent fails the phase with it
+        out = {"error": traceback.format_exc()}
+    finally:
+        Path(result_path).write_text(json.dumps(out))
+
+
+def _floats(x):
+    return {k: _floats(v) for k, v in x.items()} if isinstance(x, dict) else float(x)
+
+
+def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
+    """The ``tp`` phase's gates for one model (module constants): rows,
+    {kernel: {path: launches}} and the gates that failed."""
+    cfg = _tp_cfg(arch)
+    _, steps, _, _, gen = TP_MODELS[arch]
+    parts = split_parts(cfg, TP_RANKS)
+    h, k = cfg.num_heads, cfg.num_kv_heads
+    heads = (h // TP_RANKS, max(k // TP_RANKS, 1)) if parts["attention"] else (h, k)
+    di = cfg.ssm_d_inner // (TP_RANKS if parts["mamba"] else 1)
+    want_shapes = {}
+    if cfg.family != "ssm":
+        want_shapes["flash_attention"] = [list(heads)]
+    if cfg.family in ("ssm", "hybrid"):
+        want_shapes["selective_scan"] = [di]
+    want_train = expected_train_counts(cfg, cfg.grad_accum * steps)
+    want_serve = {n: v for n, v in expected_counts(cfg, gen).items() if n in counters()}
+    r0 = ranks[0]
+    rows, launches = [], {name: {} for name in counters()}
+    fails = []
+    for kind in ("train", "prefill"):
+        split, plain = meta[kind]["split"], meta[kind]["plain"]
+        rows_, seq = (TP_ROWS, TP_SEQ) if kind == "train" else TP_MODELS[arch][2:4]
+        whole = whole_dot_flops(cfg, parts, rows_, seq, kind, _k2_dot(plain["kernels"]))
+        want_dot = split_dot_flops(plain["dot_flops"], whole, TP_RANKS)
+        ratio = {"flash_attention": heads[0] / h if cfg.family != "ssm" else 1,
+                 "selective_scan": di / cfg.ssm_d_inner if cfg.ssm_d_inner else 1}
+        work_ok = True
+        for name, w in plain["kernels"].items():
+            got = split["kernels"].get(name, {})
+            r = ratio.get(name.removesuffix("_bwd"), 1)
+            for key in ("calls", "dot_flops", "f32_ops", "exps"):
+                scale = 1 if key == "calls" else r
+                work_ok &= got.get(key, 0) == w.get(key, 0) * scale
+            if name.startswith("rms_norm"):
+                work_ok &= got.get("bytes") == w.get("bytes")
+        row = {"arch": arch, "part": kind, "layers": cfg.num_layers, "parts": parts,
+               "per_rank_heads": list(heads) if cfg.family != "ssm" else None,
+               "per_rank_channels": di if cfg.ssm_d_inner else None,
+               "dot_flops_split": split["dot_flops"], "dot_flops_plain": plain["dot_flops"],
+               "dot_flops_whole_parts": whole, "dot_flops_closed_form": want_dot,
+               "split_share": split["dot_flops"] / plain["dot_flops"],
+               "collective_bytes_split": split["collectives"]["total"],
+               "kernel_work_split": split["kernels"], "kernel_work_plain": plain["kernels"]}
+        if split["dot_flops"] != want_dot:
+            fails.append(f"{arch} {kind}: split dot FLOPs {split['dot_flops']}, closed form "
+                         f"{want_dot}")
+        if not work_ok:
+            fails.append(f"{arch} {kind}: kernel work {split['kernels']} against the plain "
+                         f"{plain['kernels']} at shares {ratio}")
+        for rank, res in enumerate(ranks):
+            part = res[arch]["train" if kind == "train" else "serve"]["split"]
+            card = part["card"]
+            if _floats(card["dot_flops_by_dtype"]) != _floats(split["dot_flops_by_dtype"]) \
+                    or _floats(card["kernels"]) != _floats(split["kernels"]):
+                fails.append(f"{arch} {kind} rank {rank}: on the card {card['dot_flops_by_dtype']}"
+                             f" {card['kernels']}, reckoned {split['dot_flops_by_dtype']} "
+                             f"{split['kernels']}")
+            row[f"card_dot_flops_rank{rank}"] = card["dot_flops"]
+        rows.append(row)
+    for rank, res in enumerate(ranks):
+        tr, sv = res[arch]["train"]["split"], res[arch]["serve"]["split"]
+        for name in counters():
+            launches[name][f"{arch} tp train rank {rank}"] = tr["launches"][name]
+            launches[name][f"{arch} tp serve rank {rank}"] = sv["launches"][name]
+        if tr["launches"] != want_train or sv["launches"] != want_serve:
+            fails.append(f"{arch} rank {rank}: launches train {tr['launches']} (want "
+                         f"{want_train}), serve {sv['launches']} (want {want_serve})")
+        for got in (tr["kernel_shapes"], sv["kernel_shapes"]):
+            if got != want_shapes:
+                fails.append(f"{arch} rank {rank}: kernel inputs {got}, want {want_shapes}")
+        if not tr["peak_gib"] < r0[arch]["train"]["plain"]["peak_gib"] or \
+                not sv["peak_gib"] < r0[arch]["serve"]["plain"]["peak_gib"]:
+            fails.append(f"{arch} rank {rank}: peak GiB train {tr['peak_gib']}, serve "
+                         f"{sv['peak_gib']}; plain {r0[arch]['train']['plain']['peak_gib']}, "
+                         f"{r0[arch]['serve']['plain']['peak_gib']}")
+        want_kv = 0 if cfg.family == "ssm" else (k // TP_RANKS if parts["attention"] else k)
+        if sv["kv_heads"] != want_kv:
+            fails.append(f"{arch} rank {rank}: the cache holds {sv['kv_heads']} kv heads")
+        if rank and tr["losses"] != r0[arch]["train"]["split"]["losses"]:
+            fails.append(f"{arch}: the model ranks' losses differ")
+    # K2 and K3 on the inputs each met on rank 0 (forward, and backward
+    # where training took it), held against their plain versions
+    checks = r0[arch].get("kernel_checks", [])
+    for name in want_shapes:
+        mine = [c for c in checks if c["kernel"] == name]
+        if not mine or not any("bwd_rel_err" in c for c in mine):
+            fails.append(f"{arch}: {name} was not checked forward and backward at the "
+                         f"ranks' shapes: {mine}")
+    # bf16 against the plain run: each drift from the f32 plain run within
+    # BF16_DRIFT_RATIO times the plain bf16 run's own; a loss is one scalar
+    # a step, so the losses' drifts are taken as their mean over the steps
+    t0_, ts = r0[arch]["train"], r0[arch]["serve"]
+    s_l, p_l, f_l = (t0_[r]["losses"] for r in ("split", "plain", "f32"))
+    loss_drift = {"split_f32": float(np.mean([abs(s - f) for s, f in zip(s_l, f_l)])),
+                  "plain_f32": float(np.mean([abs(p - f) for p, f in zip(p_l, f_l)]))}
+    loss_ok = loss_drift["split_f32"] <= BF16_DRIFT_RATIO * loss_drift["plain_f32"]
+    params_ok = t0_["params_split_f32"]["l2"] <= BF16_DRIFT_RATIO * t0_["params_plain_f32"]["l2"]
+    logit_ok, tokens_ok, counted = True, True, 0
+    for st in ts["logits"]:
+        tol = BF16_DRIFT_RATIO * st["plain_f32"]
+        logit_ok &= st["finite"] and st["split_f32"] <= tol
+        for margin, same in zip(st["margins"], st["same_token"]):
+            if margin > tol:
+                counted += 1
+                tokens_ok &= same
+    rows.append({"arch": arch, "part": "against plain", "layers": cfg.num_layers,
+                 "steps": steps, "rows": TP_ROWS, "seq_len": TP_SEQ,
+                 "grad_accum": cfg.grad_accum,
+                 "losses": {r: t0_[r]["losses"] for r in ("split", "plain", "f32")},
+                 "loss_drift_mean": loss_drift,
+                 "kernel_checks": checks,
+                 "params_drift": {k_: t0_[k_] for k_ in ("params_split_f32",
+                                                         "params_plain_f32",
+                                                         "params_split_plain")},
+                 "logits_drift": [{k_: st[k_] for k_ in ("split_f32", "plain_f32",
+                                                         "split_plain")}
+                                  for st in ts["logits"]],
+                 "greedy_tokens_counted": counted, "greedy_tokens_equal": tokens_ok,
+                 "step_ms": {f"rank {r}": res[arch]["train"]["split"]["step_ms"]
+                             for r, res in enumerate(ranks)}
+                 | {"plain": t0_["plain"]["step_ms"]},
+                 "peak_gib": {f"rank {r}": [res[arch]["train"]["split"]["peak_gib"],
+                                            res[arch]["serve"]["split"]["peak_gib"]]
+                              for r, res in enumerate(ranks)}
+                 | {"plain": [t0_["plain"]["peak_gib"], ts["plain"]["peak_gib"]]},
+                 "kv_heads": ts["split"]["kv_heads"],
+                 "ssm_channels": ts["split"]["ssm_channels"],
+                 "counted_s": t0_["split"]["counted_s"],
+                 "train_s": ranks[0][arch]["train_s"], "serve_s": ranks[0][arch]["serve_s"]})
+    if not (loss_ok and params_ok and logit_ok and tokens_ok):
+        fails.append(f"{arch}: against the plain run: losses {loss_ok}, params {params_ok}, "
+                     f"logits {logit_ok}, greedy tokens {tokens_ok}: {rows[-1]}")
+    for r in rows:
+        log(f"[tp] {json.dumps(r)}")
+    return rows, launches, fails
+
+
+def phase_tp() -> tuple[list, dict]:
+    """The ``tp`` phase: two spawned model ranks on the card (the gloo group
+    lives and dies with them) while a third process reckons their programs
+    on meta tensors; then the gates of :func:`_tp_check`.  Returns the
+    ``tp`` line's rows and {kernel: {path: launches}}."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as tmp:
+        meta_path = Path(tmp) / "meta.json"
+        procs = [ctx.Process(target=_tp_meta_child, args=(str(meta_path),),
+                             name="chip-smoke-tp-meta")]
+        procs += [ctx.Process(target=_tp_rank, args=(r, str(Path(tmp) / "pg"),
+                                                     str(Path(tmp) / f"rank{r}.json")),
+                              name=f"chip-smoke-tp-{r}") for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        late = [p.name for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+        if late:
+            raise AssertionError(f"{late} outlived {TP_TIMEOUT_S} s")
+        outs = [json.loads(path.read_text()) if path.exists() else {}
+                for path in [meta_path] + [Path(tmp) / f"rank{r}.json"
+                                           for r in range(TP_RANKS)]]
+    for p, out in zip(procs, outs):
+        if "error" in out:
+            raise AssertionError(f"{p.name} failed:\n{out['error']}")
+        if p.exitcode != 0 or not out:
+            raise AssertionError(f"{p.name} exited {p.exitcode} with no result")
+    meta, ranks = outs[0], outs[1:]
+    rows, launches, fails = [], {name: {} for name in counters()}, []
+    for arch in TP_MODELS:
+        r, l, f = _tp_check(arch, ranks, meta[arch])
+        rows += r
+        fails += f
+        for name, by_path in l.items():
+            launches[name].update(by_path)
+    if fails:
+        raise AssertionError("; ".join(fails))
     return rows, launches
 
 
@@ -3628,6 +4255,10 @@ def main() -> int:
         done("dryrun")
         for name, by_path in dryrun_launches.items():
             launches[name].update(by_path)
+        tp_rows, tp_launches = phase_tp()
+        done("tp")
+        for name, by_path in tp_launches.items():
+            launches[name].update(by_path)
         rows = phase_report(launches, worst, worst_bwd, library_device_ms)
         done("report")
         log(f"[time] all phases {time.perf_counter() - start:.1f}s")
@@ -3641,6 +4272,7 @@ def main() -> int:
     print(json.dumps({"stream_train": stream_rows}), flush=True)
     print(json.dumps({"sharded": sharded_rows}), flush=True)
     print(json.dumps({"dryrun": dryrun_rows}), flush=True)
+    print(json.dumps({"tp": tp_rows}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

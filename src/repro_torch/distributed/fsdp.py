@@ -23,9 +23,18 @@ data axes the batch is split over, :func:`batch_mesh_dims`) computed
 gradients of their own rows, so :class:`_Gather`'s backward sums them (a
 reduce-scatter where the leaf is sharded over the dim, an all-reduce where
 it is replicated) and slices along the other dims (the ``model`` ranks saw
-the same rows).  Along ``model`` the leaves are stored sharded and gathered
-like the data axes, so model ranks compute the same values: the memory of
-tensor parallelism without its compute split.
+the same rows).
+
+Along ``model`` the view follows the split plan
+(``distributed/tensor_parallel.py``): a leaf of a part that splits reaches
+the model as its ``model`` shard (gathered over the data axes only, its
+gradient reduced over them only), or, where its layout does not put
+``model`` on the split dim (``in_proj``, repeated kv heads), gathered whole
+and cut to the rank's block, its gradient then summed over ``model`` too:
+each model rank computed only its own block's.  Every other leaf is
+gathered along ``model`` like the data axes and computed whole on each
+model rank; its gradient is the same there and is not reduced along
+``model``.
 
 SOLAR's nodes are the data axis: data rank ``r`` trains the ``r``-th block
 of ``batch_mesh_dims``' rows of the global batch (:func:`local_rows`), which
@@ -37,7 +46,7 @@ import torch
 
 __all__ = ["STACKED", "LayerGather", "check_mesh", "distribute", "local",
            "wrap_like", "batch_mesh_dims", "local_rows", "all_reduce", "gathered",
-           "global_norm"]
+           "global_norm", "whole"]
 
 #: Subtrees whose leaves carry a leading layer axis the model indexes per layer.
 STACKED = ("layers.", "enc_layers.", "dec_layers.")
@@ -139,6 +148,18 @@ def _gather(shard: torch.Tensor, mesh, placements) -> torch.Tensor:
     return x.contiguous()
 
 
+def whole(x) -> torch.Tensor:
+    """The whole tensor of a DTensor, gathered with this module's
+    collectives (DTensor's ``full_tensor`` runs functional collectives, which
+    crash a gloo group over CUDA tensors in torch 2.11); a plain tensor as
+    it is."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(x, DTensor):
+        return x
+    return _gather(x.to_local(), x.device_mesh, tuple(x.placements))
+
+
 def _reduce_to_shard(grad: torch.Tensor, mesh, placements, reduce_dims) -> torch.Tensor:
     """The shard's gradient from the whole tensor's: summed over the ranks
     of ``reduce_dims`` (a reduce-scatter where the leaf is sharded over the
@@ -196,14 +217,24 @@ def _drop_leading(placements) -> tuple:
 
 
 class LayerGather:
-    """A stacked leaf's local shard: ``[i]`` gathers layer ``i`` whole."""
+    """A stacked leaf's local shard: ``[i]`` gathers layer ``i`` as the
+    model sees it (whole, or its ``model`` block: :func:`gathered`)."""
 
-    def __init__(self, shard: torch.Tensor, like, reduce_dims: tuple):
+    def __init__(self, shard: torch.Tensor, like, reduce_dims: tuple, placements=None,
+                 take=None, plan=None):
         self.shard, self.mesh, self.reduce_dims = shard, like.device_mesh, reduce_dims
-        self.placements = _drop_leading(like.placements)
+        self.placements = _drop_leading(like.placements if placements is None
+                                        else placements)
+        self.take, self.plan = take, plan
 
     def __getitem__(self, i: int) -> torch.Tensor:
-        return _Gather.apply(self.shard[i], self.mesh, self.placements, self.reduce_dims)
+        x = _Gather.apply(self.shard[i], self.mesh, self.placements, self.reduce_dims)
+        if self.take is None:
+            return x
+        from repro_torch.distributed.tensor_parallel import take_block
+
+        dim, mode = self.take
+        return take_block(x, dim - 1, mode, self.plan)
 
 
 def _per_layer(name: str, like) -> bool:
@@ -213,20 +244,37 @@ def _per_layer(name: str, like) -> bool:
             and not any(isinstance(p, Shard) and p.dim == 0 for p in like.placements))
 
 
-def gathered(shards: dict, params: dict, mesh, reduce_dims: tuple) -> dict:
+def gathered(shards: dict, params: dict, mesh, reduce_dims: tuple, plan=None) -> dict:
     """The model's view of the params: ``shards`` are the local shards
     (requiring grad) of the DTensors ``params`` on ``mesh``; stacked leaves
-    become :class:`LayerGather`, the others are gathered whole now.  On a
-    one-rank mesh the shards are the whole leaves."""
+    become :class:`LayerGather`, the others are gathered now.  With a split
+    ``plan`` (``tensor_parallel.split_plan``) the leaves of its parts come
+    as their ``model`` blocks and the view carries the plan.  On a one-rank
+    mesh the shards are the whole leaves."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.distributed import tensor_parallel as tp
+
     if mesh.size() == 1:
         return shards
+    md = tuple(mesh.mesh_dim_names).index("model") if plan is not None else None
     out = {}
     for k, shard in shards.items():
         p = params[k]
+        placements, dims, take = tuple(p.placements), tuple(reduce_dims), None
+        how = plan.leaves.get(k) if plan is not None else None
+        if how is not None and how[1] == tp.LOCAL:
+            # the model shard is the block: gathered over the data axes only
+            placements = placements[:md] + (Replicate(),) + placements[md + 1:]
+        elif how is not None:
+            dims, take = dims + (md,), how
         if _per_layer(k, p):
-            out[k] = LayerGather(shard, p, reduce_dims)
+            out[k] = LayerGather(shard, p, dims, placements, take, plan)
         else:
-            out[k] = _Gather.apply(shard, mesh, tuple(p.placements), reduce_dims)
+            x = _Gather.apply(shard, mesh, placements, dims)
+            out[k] = x if take is None else tp.take_block(x, *take, plan)
+    if plan is not None:
+        out[tp.KEY] = plan
     return out
 
 
@@ -235,7 +283,10 @@ def global_norm(grads: dict, params: dict, mesh) -> torch.Tensor:
     shards ``grads`` (laid out as the DTensors ``params``): each leaf's sum
     of squares over its shard, summed over the ranks of the mesh dims it is
     sharded on (one all-reduce of every leaf's sum a mesh dim; a leaf
-    replicated over the dim counts its rank 0's), then summed in leaf order."""
+    replicated over the dim counts its rank 0's), then summed in leaf order.
+    A split step's gradients keep the params' layout (a split leaf's shard
+    is its ``model`` block, a replicated leaf's gradient the same on every
+    model rank), so this holds for it unchanged."""
     import torch.distributed as dist
     from torch.distributed.tensor import Shard
 

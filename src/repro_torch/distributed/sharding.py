@@ -27,8 +27,12 @@ JAX's ``/``-joined paths, in the same order (``unembed$`` before
 ``embed$``, the attention ``wo$`` before the MLP's).
 
 JAX's activation constraints (``constrain``, ``constrain_batch``) have no
-counterpart: the sharded train step hands the model whole, gathered weights
-(``distributed/fsdp.py``), so an activation is never a DTensor.
+counterpart: the sharded train step hands the model plain tensors
+(``distributed/fsdp.py``), so an activation is never a DTensor.  Where
+JAX's constraints pin heads, MLP hidden or channels over ``model``, the
+port splits that compute explicitly (``distributed/tensor_parallel.py``):
+:func:`tp_split_dim` names the dim each rule's leaves split on, and a part
+of the model splits where the chosen spec puts ``model`` on it.
 """
 from __future__ import annotations
 
@@ -44,6 +48,8 @@ __all__ = [
     "param_sharding",
     "batch_sharding",
     "cache_sharding",
+    "tp_split_dim",
+    "names_axis",
 ]
 
 # fsdp dims shard over every data-parallel axis present (pod included)
@@ -191,6 +197,30 @@ def _spec_for(path: str, shape, mesh) -> PartitionSpec:
                 cands = list(candidates)
             return choose_spec(shape, cands, mesh)
     return P(*([None] * len(shape)))
+
+
+def tp_split_dim(path: str) -> int | None:
+    """The dim of leaf ``path`` (as stored: a stacked leaf's layer axis
+    counts) that tensor parallelism splits along ``model``: where the first
+    candidate of the first rule that matches it (as :func:`param_sharding`
+    picks the rule) puts ``model``.  That is the leaf's heads, MLP hidden,
+    experts, Mamba channels (DI; ``in_proj``'s fused [xin | z] columns,
+    2·DI wide) or vocabulary.  None where that candidate has no ``model``
+    (the router, norms, ``bo``) or no rule matches."""
+    for pat, candidates in _RULES:
+        if re.search(pat, path):
+            first = tuple(candidates[0])
+            if TP not in first:
+                return None
+            return first.index(TP) + (_UNSTACKED.search(path) is None)
+    return None
+
+
+def names_axis(spec, dim: int, axis: str = TP) -> bool:
+    """Whether ``spec`` splits tensor dim ``dim`` over ``axis`` (alone or in
+    a combined entry)."""
+    entry = tuple(spec)[dim] if dim < len(spec) else None
+    return entry == axis or (isinstance(entry, tuple) and axis in entry)
 
 
 def to_placements(spec, mesh) -> tuple:

@@ -130,18 +130,19 @@ def _train_program(cfg, shape, mesh, impls):
     return make_train_step(cfg, ocfg, loss, mesh=mesh), (state, batch)
 
 
-def _view(params, mesh, rows: int):
-    """The model's view of the DTensor params for a batch of ``rows``
-    global rows (``fsdp.gathered``), nested; plain params as they are where
-    ``mesh`` is None."""
-    from repro_torch.distributed import fsdp
+def _view(cfg, params, mesh, rows: int):
+    """Rank 0's view of the DTensor params for a batch of ``rows`` global
+    rows (``fsdp.gathered`` with the split plan), nested; plain params as
+    they are where ``mesh`` is None."""
+    from repro_torch.distributed import fsdp, tensor_parallel
     from repro_torch.models import lm
 
     if mesh is None:
         return lm.nested_params(params)
     dims = fsdp.batch_mesh_dims(rows, mesh)
     local = {k: fsdp.local(p) for k, p in params.items()}
-    return lm.nested_params(fsdp.gathered(local, params, mesh, dims))
+    plan = tensor_parallel.split_plan(cfg, params, mesh)
+    return lm.nested_params(fsdp.gathered(local, params, mesh, dims, plan))
 
 
 def _local_shape(shape, mesh):
@@ -160,11 +161,14 @@ def _local_shape(shape, mesh):
 
 
 def _serve_program(cfg, shape, mesh, impls, model_axis=None):
-    """(fn, args) of rank 0's prefill or decode step: the gathered params,
-    the data rank's rows and (decode) its cache, full to its last position,
-    built for ``model_axis`` (the mesh's by default)."""
+    """(fn, args) of rank 0's prefill or decode step: its view of the
+    params (split along ``model`` as the plan says), the data rank's rows
+    and (decode) its cache, full to its last position, built for
+    ``model_axis`` (the mesh's by default) and holding rank 0's kv heads
+    and channels where they split."""
     import torch
 
+    from repro_torch.distributed import tensor_parallel
     from repro_torch.launch import specs
     from repro_torch.models import encdec, lm
 
@@ -178,7 +182,7 @@ def _serve_program(cfg, shape, mesh, impls, model_axis=None):
         batch = specs.prefill_specs(cfg, local)
 
         def fn(params, batch):
-            view = _view(params, mesh, rows)
+            view = _view(cfg, params, mesh, rows)
             with torch.no_grad():
                 if cfg.family == "encdec":
                     return encdec.prefill(view, batch["tokens"], batch["source"], cfg, spec,
@@ -187,11 +191,12 @@ def _serve_program(cfg, shape, mesh, impls, model_axis=None):
                                   patches=batch.get("patches"), **impls)
         return fn, (params, batch)
 
-    cache, tokens, spec = specs.decode_specs(cfg, local, model_axis=model_axis)
+    plan = None if mesh is None else tensor_parallel.split_plan(cfg, params, mesh)
+    cache, tokens, spec = specs.decode_specs(cfg, local, model_axis=model_axis, plan=plan)
     cache["pos"] = shape.seq_len - 1
 
     def fn(params, cache, tokens):
-        view = _view(params, mesh, rows)
+        view = _view(cfg, params, mesh, rows)
         with torch.no_grad():
             if cfg.family == "encdec":
                 return encdec.decode_step(view, cache, tokens, cfg, spec)

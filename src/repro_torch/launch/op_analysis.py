@@ -40,7 +40,10 @@ on the card's real ones.  It returns JAX's keys and adds three:
   storages) beside it.
 
 The program's device is the device of its first tensor argument; ops whose
-tensors all lie elsewhere (the host's RNG state, say) are not counted.
+tensors all lie elsewhere (the host's RNG state, say) are not counted.  Ops
+run under ``torch.inference_mode`` bypass the dispatch mode and are not
+counted either: count a serving program under ``torch.no_grad``, as the
+dry run's are.
 """
 from __future__ import annotations
 

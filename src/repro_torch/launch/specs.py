@@ -57,15 +57,15 @@ def prefill_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
     return specs
 
 
-def decode_specs(cfg: ModelConfig, shape: ShapeConfig, *, model_axis: int):
+def decode_specs(cfg: ModelConfig, shape: ShapeConfig, *, model_axis: int, plan=None):
     """(cache specs, token spec, CacheSpec) for one decode step with a
-    seq_len-deep cache."""
+    seq_len-deep cache (a model rank's, with a split ``plan``)."""
     b, s = shape.global_batch, shape.seq_len
     spec = CacheSpec.build(cfg, s, model_axis)
     if cfg.family == "encdec":
         cache = _encdec_cache(cfg, spec, b)
     else:
-        cache = lm.init_cache(cfg, spec, b, device=META)
+        cache = lm.init_cache(cfg, spec, b, device=META, plan=plan)
     return cache, _sds((b,), "int32"), spec
 
 

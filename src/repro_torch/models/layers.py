@@ -18,8 +18,12 @@ backward kernels, the plain ``rms_norm`` through the JAX package's custom
 VJP (cotangents in the input dtypes), the rest through autograd.
 
 ``constrain`` has no counterpart: on a mesh the sharded train step hands
-the model whole, gathered weights (``distributed/fsdp.py``), so an
-activation is never a DTensor and has no layout to pin.
+the model plain tensors (``distributed/fsdp.py``), so an activation is
+never a DTensor and has no layout to pin.  Where JAX's constraints split
+the SwiGLU hidden or the Mamba channels over ``model``, :func:`swiglu_mlp`
+and :func:`mamba_block` take ``split`` (a ``tensor_parallel.SplitPlan``
+whose part splits): their weights are then the model rank's block, and the
+region's input and output pass the plan's *f* and *g*.
 """
 from __future__ import annotations
 
@@ -268,8 +272,15 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, k_scale=None,
     return out.reshape(b, h, 1, hd).to(q.dtype)
 
 
-def swiglu_mlp(x, wi_gate, wi_up, wo):
-    return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+def swiglu_mlp(x, wi_gate, wi_up, wo, split=None):
+    """``(silu(x wi_gate) * (x wi_up)) wo``.  With ``split`` the weights
+    hold the rank's hidden units: its partial sum is all-reduced."""
+    if split is None:
+        return (F.silu(x @ wi_gate) * (x @ wi_up)) @ wo
+    from repro_torch.distributed import tensor_parallel as tp
+
+    x = tp.copy_in(x, split)
+    return tp.reduce_out((F.silu(x @ wi_gate) * (x @ wi_up)) @ wo, split)
 
 
 def gelu_mlp(x, wi, bi, wo, bo):
@@ -410,9 +421,16 @@ def _selective_scan(u, dt, a, b_ssm, c_ssm, d_skip, *, chunk: int = 256,
 
 
 def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
-                impl: str = "auto", h0=None, conv0=None, return_state=False):
+                impl: str = "auto", h0=None, conv0=None, return_state=False,
+                split=None):
     """Mamba-1 mixer.  x [B, S, D]; params dict p (see ``lm.init_lm``).
     ``impl`` selects the selective scan.
+
+    With ``split`` the leaves hold the model rank's DI channels (``in_proj``
+    its xin and z columns): the conv, ``dt_proj``, the scan and ``d_skip``
+    run on them; ``x_proj``'s partial (dt, B, C) is all-reduced and its
+    gradient too (it feeds every channel), ``out_proj``'s partial sum is
+    all-reduced; states and conv tails are the rank's channels'.
 
     The depthwise causal conv is the JAX package's ``conv_general_dilated``
     with ``feature_group_count=DI`` and left padding ``conv_k - 1`` (none
@@ -426,6 +444,10 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
     tokens still leaves a full tail and decode continues the full forward.
     (The JAX package slices the unpadded input and its decode then raises.)
     """
+    if split is not None:
+        from repro_torch.distributed import tensor_parallel as tp
+
+        x = tp.copy_in(x, split)
     di = p["in_proj"].shape[1] // 2
     xin, z = (x @ p["in_proj"]).split(di, dim=-1)
 
@@ -439,6 +461,8 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
     xin_c = F.silu(conv).to(x.dtype)
 
     xdbc = xin_c @ p["x_proj"]                                      # [B,S,R+2N]
+    if split is not None:
+        xdbc = tp.copy_in(tp.reduce_out(xdbc, split), split)
     dt_raw = xdbc[..., :dt_rank]
     b_ssm = xdbc[..., dt_rank:dt_rank + ssm_state].contiguous()
     c_ssm = xdbc[..., dt_rank + ssm_state:].contiguous()
@@ -448,6 +472,8 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
                                 impl=impl)
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"]
+    if split is not None:
+        out = tp.reduce_out(out, split)
     if return_state:
         conv_tail = xe[:, -(conv_k - 1):].to(xin.dtype) if conv_k > 1 else None
         return out, h_last, conv_tail
@@ -455,9 +481,11 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
 
 
 def mamba_decode_step(x, p, h, conv_state, *, dt_rank: int, ssm_state: int,
-                      conv_k: int = 4):
+                      conv_k: int = 4, split=None):
     """One-token recurrent Mamba step through the plain scan (the kernel
-    starts from h=0).  x [B, 1, D]; h [B, DI, N]; conv_state [B, conv_k-1, DI].
+    starts from h=0).  x [B, 1, D]; h [B, DI, N]; conv_state [B, conv_k-1, DI]
+    (with ``split``: the rank's DI channels).
     Returns (y [B, 1, D], h', conv_state')."""
     return mamba_block(x, p, dt_rank=dt_rank, ssm_state=ssm_state, conv_k=conv_k,
-                       impl="ref", h0=h, conv0=conv_state, return_state=True)
+                       impl="ref", h0=h, conv0=conv_state, return_state=True,
+                       split=split)

@@ -35,6 +35,15 @@ prepends ``patches @ mm_proj`` to the token embeddings; rope positions run
 over patches and tokens together, the cache counts the prefix, and the loss
 skips the patch positions.  The JAX package's unrolled decode step
 (``_decode_step_unrolled``) is a variant for XLA and is not ported.
+
+Params that carry a split plan (``distributed/tensor_parallel.py``: the
+sharded train step's view, ``tensor_parallel.local_view`` for serving)
+hold a model rank's block of each part that splits along ``model``:
+attention runs K2 on the rank's query and kv heads, the MLP on its hidden
+units, the Mamba mixer K3 on its channels, the embedding and the logits on
+its vocabulary rows; row-parallel outputs are all-reduced, the residual
+stream and every norm stay whole.  The cache then holds the rank's kv heads
+and channels, and prefill and decode return the whole vocabulary's logits.
 """
 from __future__ import annotations
 
@@ -46,6 +55,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
 
 __all__ = ["init_lm", "train_loss", "forward_hidden", "flat_params", "nested_params",
@@ -187,9 +197,17 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _qkv(x, lp, cfg: ModelConfig, positions):
+def _part(plan, name: str):
+    """``plan`` where its part ``name`` splits, else None."""
+    return plan if plan is not None and getattr(plan, name) else None
+
+
+def _qkv(x, lp, cfg: ModelConfig, positions, split=None):
     """Projections, bias and rope.  Returns contiguous q [B,H,S,hd] and
-    k/v [B,K,S,hd] (the flash kernel takes contiguous inputs only)."""
+    k/v [B,K,S,hd] (the flash kernel takes contiguous inputs only); with
+    ``split``, the rank's H / size query heads and their kv heads."""
+    if split is not None:
+        x = tp.copy_in(x, split)
     q = torch.einsum("bsd,dhk->bhsk", x, lp["wq"])
     k = torch.einsum("bsd,dhk->bhsk", x, lp["wk"])
     v = torch.einsum("bsd,dhk->bhsk", x, lp["wv"])
@@ -202,14 +220,18 @@ def _qkv(x, lp, cfg: ModelConfig, positions):
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _attn_out(out, lp):
-    return torch.einsum("bhsk,hkd->bsd", out, lp["wo"])
+def _attn_out(out, lp, split=None):
+    y = torch.einsum("bhsk,hkd->bsd", out, lp["wo"])
+    return y if split is None else tp.reduce_out(y, split)
 
 
 def _logits(params, hidden, cfg: ModelConfig):
-    """f32 logits, as in the JAX package."""
+    """f32 logits, as in the JAX package (a split vocabulary's gathered
+    whole)."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return torch.einsum("bsd,dv->bsv", hidden.float(), w.float())
+    logits = torch.einsum("bsd,dv->bsv", hidden.float(), w.float())
+    split = _part(tp.plan_of(params), "vocab")
+    return logits if split is None else tp.gather_vocab(logits, split)
 
 
 def _layer(tree, i: int) -> dict:
@@ -218,13 +240,14 @@ def _layer(tree, i: int) -> dict:
             for name, leaf in tree.items()}
 
 
-def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False):
+def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False, plan=None):
     """ln2, then the SwiGLU MLP or, in the moe family, the experts.  Returns
     (x + y, the moe aux loss or None).  A decode step routes each token as a
     group of its own, with a capacity factor of at least 2."""
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps, impl=norm_impl)
     if cfg.family != "moe":
-        return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"]), None
+        return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"],
+                                split=_part(plan, "mlp")), None
     shared = ((lp["ws_gate"], lp["ws_up"], lp["ws_down"])
               if cfg.num_shared_experts else None)
     cf = cfg.expert_capacity_factor
@@ -235,11 +258,20 @@ def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False):
     return x + y, aux
 
 
+def _lookup(params, tokens, cfg: ModelConfig):
+    """Token embeddings in the compute dtype (a split vocabulary's looked up
+    by the rank that holds each row)."""
+    split = _part(tp.plan_of(params), "vocab")
+    x = (params["embed"][tokens] if split is None
+         else tp.embed(params["embed"], tokens, split))
+    return x.to(_dtype(cfg.compute_dtype))
+
+
 def _embed(params, tokens, cfg: ModelConfig, patches):
     """Token embeddings in the compute dtype; the vlm family prepends
     ``patches [B, P, D] @ mm_proj``."""
     cd = _dtype(cfg.compute_dtype)
-    x = params["embed"][tokens].to(cd)
+    x = _lookup(params, tokens, cfg)
     if cfg.family != "vlm":
         return x
     if patches is None:
@@ -247,10 +279,10 @@ def _embed(params, tokens, cfg: ModelConfig, patches):
     return torch.cat([patches.to(cd) @ params["mm_proj"].to(cd), x], dim=1)
 
 
-def _mamba(h, lp, cfg: ModelConfig, return_state: bool = True, **kw):
+def _mamba(h, lp, cfg: ModelConfig, return_state: bool = True, plan=None, **kw):
     return L.mamba_block(h, lp["ssm"], dt_rank=cfg.resolved_dt_rank,
                          ssm_state=cfg.ssm_state, conv_k=cfg.ssm_conv,
-                         return_state=return_state, **kw)
+                         return_state=return_state, split=_part(plan, "mamba"), **kw)
 
 
 def _fuse(mix, ssm_o, lp, cfg: ModelConfig, norm_impl: str):
@@ -294,22 +326,25 @@ def nested_params(flat: dict) -> dict:
 
 
 def _block_train(x, lp, cfg: ModelConfig, positions, attn_impl: str, ssm_impl: str,
-                 norm_impl: str):
+                 norm_impl: str, plan=None):
     """One block, full-sequence causal (``lm.py:_block_train`` of the JAX
     package).  Returns (x, the moe aux loss or None: the other families
-    carry none)."""
+    carry none).  The hybrid's fuse takes the attention and SSM outputs
+    each all-reduced where split: the norm of the SSM output is not linear."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
     if cfg.family == "ssm":
-        mix = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
+        mix = _mamba(h, lp, cfg, return_state=False, plan=plan, impl=ssm_impl)
     else:
-        q, k, v = _qkv(h, lp, cfg, positions)
+        split = _part(plan, "attention")
+        q, k, v = _qkv(h, lp, cfg, positions, split)
         window = cfg.sliding_window if cfg.family == "hybrid" else 0
-        mix = _attn_out(L.attention(q, k, v, causal=True, window=window, impl=attn_impl), lp)
+        mix = _attn_out(L.attention(q, k, v, causal=True, window=window, impl=attn_impl),
+                        lp, split)
         if cfg.family == "hybrid":
-            ssm_o = _mamba(h, lp, cfg, return_state=False, impl=ssm_impl)
+            ssm_o = _mamba(h, lp, cfg, return_state=False, plan=plan, impl=ssm_impl)
             mix = _fuse(mix, ssm_o, lp, cfg, norm_impl)
     x = x + mix
-    return (x, None) if cfg.family == "ssm" else _mlp(x, lp, cfg, norm_impl)
+    return (x, None) if cfg.family == "ssm" else _mlp(x, lp, cfg, norm_impl, plan=plan)
 
 
 def _remat(fn, *args):
@@ -328,11 +363,11 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, attn_impl: str = "auto",
     check_supported(cfg)
     x = _embed(params, tokens, cfg, patches)
     positions = torch.arange(x.shape[1], device=x.device)
-    layers = params["layers"]
+    layers, plan = params["layers"], tp.plan_of(params)
 
     def block(x, i):
         return _block_train(x, _layer(layers, i), cfg, positions, attn_impl, ssm_impl,
-                            norm_impl)
+                            norm_impl, plan)
 
     def run(x, aux, i):
         x, a = _remat(block, x, i) if cfg.remat else block(x, i)
@@ -366,9 +401,17 @@ def _ce_chunk(h, w32, labels, valid):
 def _chunked_ce(params, hidden, labels, valid, cfg: ModelConfig):
     """(Σ weighted NLL, Σ weights) without materialising [B, S, V]: each
     ``ce_chunk`` positions (shrunk until it divides S) compute their own f32
-    logits, which the backward recomputes instead of keeping."""
+    logits, which the backward recomputes instead of keeping.  A split
+    vocabulary's chunks take the rank's logits (``tensor_parallel.ce_sum``)."""
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     w32 = w.float()
+    split = _part(tp.plan_of(params), "vocab")
+    ce = _ce_chunk
+    if split is not None:
+        hidden = tp.copy_in(hidden, split)
+
+        def ce(h, w32, labels, valid):
+            return tp.ce_sum(h, w32, labels, valid, split)
     s = hidden.shape[1]
     chunk = min(cfg.ce_chunk, s)
     while s % chunk:
@@ -377,7 +420,7 @@ def _chunked_ce(params, hidden, labels, valid, cfg: ModelConfig):
     denom = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c0 in range(0, s, chunk):
         sl = slice(c0, c0 + chunk)
-        nll = nll + _remat(_ce_chunk, hidden[:, sl], w32, labels[:, sl], valid[:, sl])
+        nll = nll + _remat(ce, hidden[:, sl], w32, labels[:, sl], valid[:, sl])
         denom = denom + valid[:, sl].sum()
     return nll, denom
 
@@ -456,16 +499,30 @@ class CacheSpec:
         return CacheSpec(k_eff, seq_len, False, quant)
 
 
+def _cache_heads(spec: CacheSpec, plan) -> int:
+    """The kv heads a rank's cache holds: ``spec``'s, or its block of them
+    where attention splits (``spec`` built for the plan's model axis)."""
+    split = _part(plan, "attention")
+    if split is None:
+        return spec.kv_heads
+    if spec.kv_heads % split.size:
+        raise ValueError(f"a cache of {spec.kv_heads} kv heads does not split over "
+                         f"{split.size} model ranks: build the CacheSpec with "
+                         f"model_axis={split.size}")
+    return spec.kv_heads // split.size
+
+
 def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
-               device=None) -> dict:
+               device=None, plan=None) -> dict:
     """Allocate the zeroed decode cache; ``pos`` is the next position.  The
     SSM state ``ssm_h`` is f32 [L, B, DI, N]; ``conv`` holds the last
-    ``conv_k - 1`` conv inputs [L, B, conv_k-1, DI] in the compute dtype."""
+    ``conv_k - 1`` conv inputs [L, B, conv_k-1, DI] in the compute dtype.
+    With a split ``plan``, the rank's kv heads and DI channels."""
     device = resolve_device(device)
     cd = dtype or _dtype(cfg.compute_dtype)
     cache = {"pos": 0}
     if cfg.family != "ssm":
-        shape = (cfg.num_layers, batch, spec.kv_heads, spec.cache_len,
+        shape = (cfg.num_layers, batch, _cache_heads(spec, plan), spec.cache_len,
                  cfg.resolved_head_dim)
         store = torch.int8 if spec.quantized else cd
         cache["k"] = torch.zeros(shape, dtype=store, device=device)
@@ -475,6 +532,8 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
             cache["v_scale"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
     if cfg.family in ("ssm", "hybrid"):
         di, n, ck = cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_conv
+        split = _part(plan, "mamba")
+        di = di if split is None else split.block(di)[1]
         cache["ssm_h"] = torch.zeros((cfg.num_layers, batch, di, n),
                                      dtype=torch.float32, device=device)
         cache["conv"] = torch.zeros((cfg.num_layers, batch, ck - 1, di), dtype=cd,
@@ -533,24 +592,26 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             f"{spec.cache_len}; build the CacheSpec with a longer max_len")
     positions = torch.arange(s, device=x.device)
     window = cfg.sliding_window if cfg.family == "hybrid" else 0
-    cache = init_cache(cfg, spec, b, device=x.device)
+    plan = tp.plan_of(params)
+    split = _part(plan, "attention")
+    cache = init_cache(cfg, spec, b, device=x.device, plan=plan)
+    heads = cache["k"].shape[2] if "k" in cache else 0
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
         if cfg.family != "ssm":
-            q, k, v = _qkv(h, lp, cfg, positions)
+            q, k, v = _qkv(h, lp, cfg, positions, split)
             o = L.attention(q, k, v, causal=True, window=window, impl=attn_impl)
-            mix = _attn_out(o, lp)
-            _write_prefill_kv(cache, i, _repeat_to(k, spec.kv_heads),
-                              _repeat_to(v, spec.kv_heads), spec, cd)
+            mix = _attn_out(o, lp, split)
+            _write_prefill_kv(cache, i, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd)
         if cfg.family in ("ssm", "hybrid"):
-            ssm_o, h_last, conv_tail = _mamba(h, lp, cfg, impl=ssm_impl)
+            ssm_o, h_last, conv_tail = _mamba(h, lp, cfg, plan=plan, impl=ssm_impl)
             cache["ssm_h"][i] = h_last
             cache["conv"][i] = conv_tail.to(cd)
             mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
         x = x + mix
         if cfg.family != "ssm":
-            x, _ = _mlp(x, lp, cfg, norm_impl)
+            x, _ = _mlp(x, lp, cfg, norm_impl, plan=plan)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = s
     return _logits(params, hidden[:, -1:], cfg)[:, 0], cache
@@ -568,31 +629,33 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
         raise ValueError(f"cache is full ({spec.cache_len} positions)")
     write = pos % spec.cache_len if spec.ring else pos
     cache_len = min(pos + 1, spec.cache_len) if spec.ring else pos + 1
-    x = params["embed"][tokens[:, None]].to(cd)  # [B, 1, D]
+    x = _lookup(params, tokens[:, None], cfg)  # [B, 1, D]
     positions = torch.full((x.shape[0], 1), pos, device=x.device)
+    plan = tp.plan_of(params)
+    split = _part(plan, "attention")
+    heads = cache["k"].shape[2] if "k" in cache else 0
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
         if cfg.family != "ssm":
-            q, k, v = _qkv(h, lp, cfg, positions)
-            _write_kv(cache, i, write, _repeat_to(k, spec.kv_heads),
-                      _repeat_to(v, spec.kv_heads), spec, cd)
+            q, k, v = _qkv(h, lp, cfg, positions, split)
+            _write_kv(cache, i, write, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd)
             scales = {}
             if spec.quantized:
                 scales = {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
             o = L.decode_attention(q, cache["k"][i], cache["v"][i], cache_len, **scales)
-            mix = _attn_out(o, lp)
+            mix = _attn_out(o, lp, split)
         if cfg.family in ("ssm", "hybrid"):
             ssm_o, h_new, conv_new = L.mamba_decode_step(
                 h, lp["ssm"], cache["ssm_h"][i], cache["conv"][i],
                 dt_rank=cfg.resolved_dt_rank, ssm_state=cfg.ssm_state,
-                conv_k=cfg.ssm_conv)
+                conv_k=cfg.ssm_conv, split=_part(plan, "mamba"))
             cache["ssm_h"][i] = h_new
             cache["conv"][i] = conv_new.to(cd)
             mix = ssm_o if cfg.family == "ssm" else _fuse(mix, ssm_o, lp, cfg, norm_impl)
         x = x + mix
         if cfg.family != "ssm":
-            x, _ = _mlp(x, lp, cfg, norm_impl, decode=True)
+            x, _ = _mlp(x, lp, cfg, norm_impl, decode=True, plan=plan)
     hidden = L.rms_norm(x, params["final_norm"], cfg.norm_eps, impl=norm_impl)
     cache["pos"] = pos + 1
     return _logits(params, hidden, cfg)[:, 0], cache

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel
 from repro_torch.models import encdec, lm
 from repro_torch.models.lm import CacheSpec
 
@@ -29,11 +30,19 @@ class ServeEngine:
     has no RMSNorm and no scan.  ``device`` defaults to the card and raises
     without one; pass ``device='cpu'`` to run on the CPU.  ``model_axis``
     is the model-parallel width the cache is laid out for
-    (``CacheSpec.build``: kv heads repeated to divide it)."""
+    (``CacheSpec.build``: kv heads repeated to divide it).
+
+    On a ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; every rank
+    builds its engine from the same whole ``params``) the engine is a model
+    rank's: it keeps the rank's block of each part that splits
+    (``tensor_parallel.local_view``), its cache the rank's kv heads and
+    channels, ``model_axis`` is the mesh's, and every rank must call
+    ``prefill`` and ``step`` alike (their all-reduces pair up).  The logits
+    are the whole vocabulary's on every rank."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_len: int,
                  model_axis: int = 1, attn_impl: str = "auto", ssm_impl: str = "auto",
-                 norm_impl: str = "auto", device=None):
+                 norm_impl: str = "auto", device=None, mesh=None):
         if cfg.family == "vlm":
             raise NotImplementedError(
                 "the engine takes no patch embeddings, as the JAX package's does not: "
@@ -41,6 +50,11 @@ class ServeEngine:
                 "lm.decode_step")
         self.device = resolve_device(device)
         self.cfg = cfg
+        if mesh is not None:
+            names = tuple(mesh.mesh_dim_names)
+            model_axis = mesh.size(names.index("model")) if "model" in names else 1
+            params = tensor_parallel.local_view(
+                params, tensor_parallel.split_plan(cfg, lm.flat_params(params), mesh))
         self.spec = CacheSpec.build(cfg, max_len, model_axis)
         self.attn_impl = attn_impl
         self.ssm_impl = ssm_impl
@@ -125,4 +139,4 @@ class ServeEngine:
 def _to_device(tree, device):
     if isinstance(tree, dict):
         return {k: _to_device(v, device) for k, v in tree.items()}
-    return tree.to(device)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree  # a split plan

@@ -24,6 +24,13 @@ the sharded step with ``grad_accum`` A over D data ranks computes the
 unsharded step with ``grad_accum`` A·D, up to f32 summation order: the
 same update as A, by Eq. (3), in every family but moe, whose router aux loss
 is a function of each microbatch's tokens.
+
+Where the mesh has a ``model`` axis and ``cfg`` is a model of a family that
+splits (``tensor_parallel.split_plan``), the gathered view hands the model
+each split part's ``model`` blocks and the plan, and the model ranks
+compute their own heads, hidden units, channels and vocabulary.  The loss
+is the same on every model rank, so ``Σw`` and the loss sum are still
+reduced over the data axes only.
 """
 from __future__ import annotations
 
@@ -31,7 +38,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.distributed import compression, fsdp
+from repro_torch.distributed import compression, fsdp, tensor_parallel
 from repro_torch.distributed.sharding import param_sharding
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates, init_opt_state,
                                      torch_dtype)
@@ -88,10 +95,13 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
             raise NotImplementedError("the sharded step does not compress gradients: "
                                       "compression.compressed_psum is the int8 collective")
 
+    plans = []  # the split plan, read on the first call: cfg, the mesh and
+                # the params' global shapes are fixed for the step's lifetime
+
     def step(state, batch):
         params = state["params"]
         names = list(params)
-        reduce_dims = ()
+        reduce_dims, plan = (), None
         if mesh is not None:
             from torch.distributed.tensor import DTensor
 
@@ -100,6 +110,9 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
                                 "init_train_state(..., mesh=)")
             reduce_dims = fsdp.batch_mesh_dims(next(iter(batch.values())).shape[0], mesh)
             batch = fsdp.local_rows(batch, mesh, reduce_dims)
+            if not plans:
+                plans.append(tensor_parallel.split_plan(cfg, params, mesh))
+            plan = plans[0]
         leaves = {k: fsdp.local(p).detach().requires_grad_(True) for k, p in params.items()}
         device = leaves[names[0]].device
         for k, x in batch.items():
@@ -117,7 +130,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
             mb = {k: x.reshape((accum, x.shape[0] // accum) + x.shape[1:])[i]
                   for k, x in batch.items()}
             view = leaves if mesh is None else fsdp.gathered(leaves, params, mesh,
-                                                             reduce_dims)
+                                                             reduce_dims, plan)
             loss, metrics = loss_fn(view, mb)
             tokens = metrics.get("tokens")
             if tokens is None:

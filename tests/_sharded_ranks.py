@@ -1,7 +1,14 @@
-"""Rank side of ``tests/test_torch_sharded_train.py``: each spawned process
-joins a gloo group of 4, runs the jobs it is handed on its meshes and puts
-its local results (numpy) on a queue.  Imports torch and the port only, so
-a rank starts without JAX."""
+"""Rank side of ``tests/test_torch_sharded_train.py`` and
+``tests/test_torch_tensor_parallel.py``: each spawned process joins a gloo
+group of 4, runs the jobs it is handed on its meshes and puts its local
+results (numpy) on a queue.  Imports torch and the port only, so a rank
+starts without JAX.
+
+The meshes: ``("data", "model")`` = (2, 2); ``("pod", "data", "model")`` =
+(2, 2, 1); and ``("replica", "data", "model")`` = (2, 1, 2), on which each
+pair of model ranks trains the whole batch on its own (the rule engine
+knows no ``replica`` axis, so every leaf and the batch are replicated over
+it): the same split arithmetic as (2, 2) with no data axis."""
 from __future__ import annotations
 
 import traceback
@@ -27,31 +34,95 @@ def _numpy(t):
     return tensor_to_numpy(local(t).detach())
 
 
+def _config(job):
+    from repro_torch.configs import get_config
+
+    return get_config(job["arch"]).reduced().replace(**job.get("overrides", {}))
+
+
+def _recording(seen: dict):
+    """Patch the model's attention and selective scan to record, per call,
+    (query heads, kv heads) and the scan's channels; returns the undo."""
+    from repro_torch.models import layers as L
+
+    attention, scan = L.attention, L._selective_scan
+
+    def rec_attention(q, k, v, **kw):
+        seen.setdefault("attention", []).append((int(q.shape[1]), int(k.shape[1])))
+        return attention(q, k, v, **kw)
+
+    def rec_scan(u, *a, **kw):
+        seen.setdefault("scan", []).append(int(u.shape[-1]))
+        return scan(u, *a, **kw)
+
+    L.attention, L._selective_scan = rec_attention, rec_scan
+
+    def undo():
+        L.attention, L._selective_scan = attention, scan
+    return undo
+
+
 def _train(mesh, job):
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.convert import lm_params_from_jax
     from repro_torch.distributed.sharding import param_sharding
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
 
-    cfg = get_config(job["arch"]).reduced().replace(grad_accum=job["accum"])
-    opt = AdamWConfig(**OPT)
+    cfg = _config(job).replace(grad_accum=job["accum"])
+    opt = AdamWConfig(**{**OPT, **job.get("opt", {})})
     params = lm_params_from_jax(job["params"], "cpu")
     specs = {k: tuple(s.spec) for k, s in param_sharding(params, mesh).items()}
     state = init_train_state(params, opt, mesh=mesh)
     step = make_train_step(cfg, opt, lambda p, b: lm.train_loss(lm.nested_params(p), b, cfg),
                            mesh=mesh)
-    metrics = []
-    for batch in job["batches"]:
-        state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
-        metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics, "specs": specs,
+    metrics, seen = [], {}
+    undo = _recording(seen) if job.get("record") else None
+    try:
+        for batch in job["batches"]:
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in batch.items()})
+            metrics.append({k: float(v) for k, v in m.items()})
+    finally:
+        if undo is not None:
+            undo()
+    from repro_torch.distributed.fsdp import whole
+
+    return {"metrics": metrics, "specs": specs, "seen": seen,
+            "whole": {k: _numpy(whole(state["params"][k])) for k in ("embed", "layers.wi_up")
+                      if k in state["params"]},
             "params": {k: _numpy(v) for k, v in state["params"].items()},
             "mu": {k: _numpy(v) for k, v in state["opt"].mu.items()},
             "nu": {k: _numpy(v) for k, v in state["opt"].nu.items()}}
+
+
+def _serve(mesh, job):
+    """Prefill and ``gen`` greedy decode steps through a model rank's
+    ``ServeEngine(mesh=)``: the logits of each, the cache's kv heads and
+    SSM channels, and what the model's attention and scan were called on."""
+    import torch
+
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = _config(job)
+    params = lm.nested_params(lm_params_from_jax(job["params"], "cpu"))
+    eng = ServeEngine(cfg, params, max_len=job["max_len"], mesh=mesh, device="cpu")
+    seen = {}
+    undo = _recording(seen)
+    try:
+        logits, cache = eng.prefill(job["prompts"])
+        steps = [logits.numpy()]
+        for _ in range(job["gen"]):
+            logits, cache = eng.step(cache, torch.argmax(logits, dim=-1))
+            steps.append(logits.numpy())
+    finally:
+        undo()
+    return {"logits": steps, "seen": seen,
+            "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
+            "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0}
 
 
 def _psum(mesh, job, rank):
@@ -140,11 +211,18 @@ def run_rank(rank: int, init_file: str, jobs: dict, queue) -> None:
                                 world_size=WORLD, rank=rank)
         mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
         pod = init_device_mesh("cpu", (2, 2, 1), mesh_dim_names=("pod", "data", "model"))
+        replica = init_device_mesh("cpu", (2, 1, 2),
+                                   mesh_dim_names=("replica", "data", "model"))
+        meshes = {"pod": pod, "replica": replica}
         out = {"coord": dict(zip(mesh.mesh_dim_names, mesh.get_coordinate())),
-               "pod_coord": dict(zip(pod.mesh_dim_names, pod.get_coordinate()))}
+               "pod_coord": dict(zip(pod.mesh_dim_names, pod.get_coordinate())),
+               "replica_coord": dict(zip(replica.mesh_dim_names, replica.get_coordinate()))}
         for name, job in jobs.items():
+            on = meshes.get(job.get("mesh") or ("pod" if job.get("pod") else ""), mesh)
             if job["kind"] == "train":
-                out[name] = _train(pod if job.get("pod") else mesh, job)
+                out[name] = _train(on, job)
+            elif job["kind"] == "serve":
+                out[name] = _serve(on, job)
             elif job["kind"] == "psum":
                 out[name] = _psum(mesh, job, rank)
             elif job["kind"] == "restore":

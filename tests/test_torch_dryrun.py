@@ -16,7 +16,9 @@ from repro.configs import get_config as jax_config
 from repro.launch import roofline as jroofline
 from repro.launch import specs as jspecs
 from repro_torch.configs import SHAPES, get_config, list_configs
-from repro_torch.distributed import fsdp
+from torch.distributed.tensor import Replicate
+
+from repro_torch.distributed import fsdp, tensor_parallel
 from repro_torch.launch import dryrun, roofline, specs
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.optim.adamw import AdamWConfig
@@ -185,7 +187,14 @@ def test_train_cell_collectives_equal_a_hand_count(mesh_name):
     forward and again in remat's recompute and reduced once in the backward,
     every other leaf gathered and reduced once; the step all-reduces Σw and
     the loss over the data dims and each leaf's squared norm over every mesh
-    dim."""
+    dim.  Reduced qwen2-0.5b's MLP hidden (128) and vocabulary (256) split
+    over the 16 model ranks, its 4 heads do not: the split leaves are
+    gathered and reduced over the data dims only, as their model blocks, and
+    each microbatch all-reduces over ``model`` the embedding rows, each
+    layer's MLP output and its input's gradient (remat's recompute stops
+    before the MLP's all-reduce: the backward keeps nothing computed after
+    it), the final hidden state's gradient, and each CE chunk's row max,
+    Σexp and target logit (forward and recompute)."""
     multi_pod = MESHES[mesh_name]
     arch, accum = "qwen2-0.5b", 2
     cfg = get_config(arch).reduced().replace(num_layers=3, grad_accum=accum)
@@ -198,17 +207,24 @@ def test_train_cell_collectives_equal_a_hand_count(mesh_name):
         state = specs.state_specs(cfg, AdamWConfig(state_dtype=cfg.opt_state_dtype),
                                   mesh=mesh)
         reduce_dims = fsdp.batch_mesh_dims(rows, mesh)
+        plan = tensor_parallel.split_plan(cfg, state["params"], mesh)
+        assert (plan.attention, plan.mlp, plan.mamba, plan.vocab) == (False, True, False, True)
+        md = mesh.mesh_dim_names.index("model")
         gather = rs = ar = 0
         for name, p in state["params"].items():
             it = p.element_size()
+            placements, whole = tuple(p.placements), list(p.shape)
+            if name in plan.leaves:  # the model block, as if replicated over model
+                assert plan.leaves[name][1] == tensor_parallel.LOCAL
+                whole[placements[md].dim] //= mesh.size(md)
+                placements = placements[:md] + (Replicate(),) + placements[md + 1:]
             if fsdp._per_layer(name, p):
-                placements = fsdp._drop_leading(p.placements)
+                placements = fsdp._drop_leading(placements)
                 uses, gathers = cfg.num_layers, 2 * cfg.num_layers
-                local, whole = fsdp.local(p).shape[1:], p.shape[1:]
+                local, whole = fsdp.local(p).shape[1:], whole[1:]
             else:
-                placements = tuple(p.placements)
                 uses = gathers = 1
-                local, whole = fsdp.local(p).shape, p.shape
+                local = fsdp.local(p).shape
             gather += gathers * _gather_bytes(local, placements, mesh, it)
             r, a = _reduce_bytes(whole, placements, mesh, reduce_dims, it)
             rs, ar = rs + uses * r, ar + uses * a
@@ -216,10 +232,14 @@ def test_train_cell_collectives_equal_a_hand_count(mesh_name):
         n_leaves = len(state["params"])
         step_ar = 8 * len([d for d in reduce_dims if mesh.size(d) > 1]) \
             + 4 * n_leaves * len(live)
+        # f32 activations of one row a data rank a microbatch; one CE chunk
+        b, s = rows // accum // math.prod(mesh.size(d) for d in reduce_dims), shape.seq_len
+        assert cfg.ce_chunk >= s and cfg.compute_dtype == "float32"
+        model_ar = 4 * b * s * cfg.d_model * (1 + 2 * cfg.num_layers + 1) + 4 * b * s * 6
     coll = stats["collectives"]
     assert coll["all-gather"] == accum * gather
     assert coll["reduce-scatter"] == accum * rs
-    assert coll["all-reduce"] == accum * ar + step_ar
+    assert coll["all-reduce"] == accum * (ar + model_ar) + step_ar
     assert coll["all-to-all"] == coll["collective-permute"] == 0
 
 
