@@ -171,8 +171,12 @@ Phases, all run in order, each of which must pass:
                runs the plain bf16 and f32 programs.  Each rank's dot FLOPs
                and kernel work (``op_analysis`` on the card) must equal the
                reckoning, which must equal the plain program's whole parts
-               and half the rest; every K2 and K3 launch takes the rank's
-               heads and channels, the launch counts are the plain run's,
+               (qwen2-moe-a2.7b's router and slot products among them) and
+               half the rest; every K2 and K3 launch takes the rank's heads
+               and channels and every moe layer the rank's 32 of 64
+               experts, the launch counts are the plain run's, both ranks'
+               expert choices are equal (digests) and the plain runs
+               replay rank 0's (``pinned_routes``, tokens moved reported),
                each rank's peak lies below the plain run's, every K2 and K3
                input rank 0 met is held, through the kernel and its backward,
                against the plain version at ``TOL`` and ``TOL_BWD``, and
@@ -204,6 +208,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import os
@@ -504,13 +509,21 @@ DRYRUN_MAX_SHARE = 1.05
 # ranks of a (data 1, model 2) mesh, two processes on the one card over a
 # gloo group (NCCL refuses two ranks on one device), bf16, random weights
 # from seed 0.  {arch: (layers (None: whole), train steps, serving batch,
-# prompt, decode steps)}.  qwen2-0.5b splits everything: K2 on 7 of 14 query
-# heads and 1 of 2 kv heads, a 2432-wide MLP, 75968 vocabulary columns;
-# hymba-1.5b's 25 heads and 32001 vocabulary do not divide 2, so its
-# attention and logits run whole on both ranks, K3 on 1600 of 3200
-# channels and a 2752-wide MLP.  Each trains on lm_train's 16 rows of 2048
+# prompt, decode steps)}; the depths are cut (qwen2-0.5b 12 of 24 layers,
+# hymba-1.5b 4 of 32) so that the script keeps to its time limit.
+# qwen2-0.5b splits everything: K2 on 7 of 14 query heads and 1 of 2 kv
+# heads, a 2432-wide MLP, 75968 vocabulary columns; hymba-1.5b's 25 heads
+# and 32001 vocabulary do not divide 2, so its attention and logits run
+# whole on both ranks, K3 on 1600 of 3200 channels and a 2752-wide MLP.
+# qwen2-moe-a2.7b at full width, 2 of its 24 layers: K2 on 8 of 16 query
+# and kv heads at hd 128, 32 of the 64 padded experts a rank (rank 1's
+# block holds the pad experts 60-63), 2816 of the shared expert's 5632
+# hidden units, 75968 vocabulary columns, the router whole on both ranks;
+# its plain bf16 and f32 runs beside the split state fit the card at 2
+# layers.  Each trains on lm_train's 16 rows of 2048
 # tokens a step in its config's microbatches.
-TP_MODELS = {"qwen2-0.5b": (None, 2, 4, 1536, 32), "hymba-1.5b": (8, 2, 4, 1536, 0)}
+TP_MODELS = {"qwen2-0.5b": (12, 2, 4, 1536, 32), "hymba-1.5b": (4, 2, 4, 1536, 0),
+             "qwen2-moe-a2.7b": (2, 2, 4, 1536, 8)}
 TP_ROWS, TP_SEQ = 16, 2048
 TP_RANKS = 2
 TP_TIMEOUT_S = 600
@@ -3638,24 +3651,35 @@ def split_parts(cfg, model_axis: int, data_axis: int = 1) -> dict:
     plan = tp.split_plan(cfg, lm.flat_params(lm.init_lm(cfg, device="meta")),
                          _PlanMesh((data_axis, model_axis)))
     return {p: bool(plan is not None and getattr(plan, p))
-            for p in ("attention", "mlp", "mamba", "vocab")}
+            for p in ("attention", "mlp", "mamba", "vocab", "experts")}
 
 
 def whole_dot_flops(cfg, parts: dict, rows: int, seq: int, kind: str, k2_dot: int) -> int:
     """Dot FLOPs of the parts of a one-card program that a split plan leaves
     whole on every model rank, in closed form: attention's projections
     (2·d·hd·(2H + 2K) a token and layer) with K2's products (``k2_dot``, the kernels'
-    record), and the logits (2·d·V a position that computes them).  A
-    training step (remat, no two-level scan) runs each four times: forward,
-    remat's recompute (which stops before a block's last product, the MLP's,
-    not before attention's; the chunked CE recomputes its logits) and the
-    backward's two products.  Prefill computes the last position's logits.
-    Every other product of the families that split is linear in a split
-    dim, so the split program computes ``w + (plain - w) / model_axis``
-    (:func:`split_dot_flops`)."""
-    if (not parts["mlp"] and cfg.family in ("dense", "hybrid")) or \
-            (not parts["mamba"] and cfg.family in ("ssm", "hybrid")):
-        raise ValueError("the closed form leaves only attention and the vocabulary whole")
+    record), the logits (2·d·V a position that computes them) and, in the
+    moe family, the router (2·d·E_pad a token and layer) and the chosen
+    slot's product over every expert (2·E_pad a choice), which every rank
+    computes whole.  A training step (remat, no two-level scan) runs each
+    four times: forward, remat's recompute (which stops before a block's
+    last product, the MLP's or the shared expert's, not before attention's
+    or the router's; the chunked CE recomputes its logits) and the
+    backward's two products; the slot's product has no gradient, so it
+    runs twice.  Prefill computes the last position's logits.  Every other
+    product of the families that split is linear in a split dim (the moe
+    dispatch and combine in the rank's experts), so the split program
+    computes ``w + (plain - w) / model_axis`` (:func:`split_dot_flops`)."""
+    from repro_torch.models.lm import padded_experts
+
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise ValueError(f"no closed form for the {cfg.family} family")
+    if (not parts["mlp"] and (cfg.family in ("dense", "hybrid") or
+                              (cfg.family == "moe" and cfg.num_shared_experts))) or \
+            (not parts["mamba"] and cfg.family in ("ssm", "hybrid")) or \
+            (not parts["experts"] and cfg.family == "moe"):
+        raise ValueError("the closed form leaves only attention, the vocabulary and the "
+                         "router whole")
     train = kind == "train"
     if train and (not cfg.remat or cfg.scan_block):
         raise ValueError("the closed form takes remat without a two-level scan")
@@ -3666,6 +3690,10 @@ def whole_dot_flops(cfg, parts: dict, rows: int, seq: int, kind: str, k2_dot: in
             + k2_dot
     if not parts["vocab"]:
         out += (4 * tokens if train else rows) * 2 * d * cfg.vocab_size
+    if cfg.family == "moe":
+        e = padded_experts(cfg)
+        out += cfg.num_layers * tokens * ((4 if train else 1) * 2 * d * e
+                                          + (2 if train else 1) * 2 * e * cfg.top_k)
     return out
 
 
@@ -3684,14 +3712,16 @@ def _k2_dot(kernels: dict) -> int:
 
 @contextlib.contextmanager
 def kernel_shapes(seen: dict, keep: dict | None = None):
-    """Record the (query heads, kv heads) of each K2 forward launch and the
-    channels of each K3 launch (their wrappers' inputs) in ``seen``; with
+    """Record the (query heads, kv heads) of each K2 forward launch, the
+    channels of each K3 launch (their wrappers' inputs) and the experts each
+    moe layer's expert einsums take (its expert leaves') in ``seen``; with
     ``keep``, also a host copy of the first inputs of each distinct shape
     and keywords, and whether autograd will call the backward on them
     (:func:`tp_kernel_checks`)."""
     from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
 
-    fa, ss = ops.flash_attention, ops.selective_scan
+    fa, ss, moe = ops.flash_attention, ops.selective_scan, L.moe_layer
 
     def kept(name, args, kw):
         if keep is None:
@@ -3714,11 +3744,15 @@ def kernel_shapes(seen: dict, keep: dict | None = None):
         kept("selective_scan", (u, *a), kw)
         return ss(u, *a, **kw)
 
-    ops.flash_attention, ops.selective_scan = attention, scan
+    def experts(x, router_w, we_gate, *a, **kw):
+        seen.setdefault("experts", set()).add(int(we_gate.shape[0]))
+        return moe(x, router_w, we_gate, *a, **kw)
+
+    ops.flash_attention, ops.selective_scan, L.moe_layer = attention, scan, experts
     try:
         yield seen
     finally:
-        ops.flash_attention, ops.selective_scan = fa, ss
+        ops.flash_attention, ops.selective_scan, L.moe_layer = fa, ss, moe
 
 
 def tp_kernel_checks(keep: dict) -> list:
@@ -3773,6 +3807,14 @@ def _host(params: dict) -> dict:
     return {k: v.float().cpu() for k, v in params.items()}
 
 
+def _routes_digest(routes: list) -> str:
+    """sha256 of the expert choices ``pinned_routes`` recorded, in call order."""
+    h = hashlib.sha256()
+    for r in routes:
+        h.update(r.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
 def _drift(got: dict, want: dict) -> dict:
     """max |got - want| and the L2 norm of got - want over every leaf."""
     sq, worst = 0.0, 0.0
@@ -3786,8 +3828,9 @@ def _drift(got: dict, want: dict) -> dict:
 def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
     """Train ``TP_MODELS[arch]``'s steps split on the mesh (both ranks; one
     more step counted by ``op_analysis`` on the card; K2's and K3's inputs
-    kept in ``keep`` on rank 0), then, on rank 0, the plain bf16 run and
-    the plain f32 run from the same init and batches."""
+    kept in ``keep`` on rank 0; the moe expert choices recorded), then, on
+    rank 0, the plain bf16 run and the plain f32 run from the same init and
+    batches, each replaying the split run's expert choices."""
     import torch.distributed as dist
 
     from repro_torch.distributed import fsdp
@@ -3805,18 +3848,23 @@ def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
     def init():
         return lm.flat_params(lm.init_lm(cfg, seed=0, device="cuda"))
 
-    def run(step, state, keep=None):
+    routes = []
+
+    def run(step, make_state, keep=None, replay=True):
+        # the state goes to _train_run with no other reference, so each step
+        # frees the one before it
         seen = {}
-        with kernel_shapes(seen, keep):
-            state, losses, ms, counts, peak = _train_run(step, state, batches)
+        with kernel_shapes(seen, keep), pinned_routes(routes, replay) as pinned:
+            state, losses, ms, counts, peak = _train_run(step, make_state(), batches)
         out = {"losses": losses, "step_ms": ms, "launches": counts, "peak_gib": peak,
-               "kernel_shapes": {k: sorted(v) for k, v in seen.items()}}
+               "kernel_shapes": {k: sorted(v) for k, v in seen.items()},
+               "routes_moved": pinned["moved"]}
         return state, out
 
     opt, sstep = ltrain.make_step(cfg, args, mesh=mesh)
-    state = init_train_state(init(), opt, mesh=mesh)
-    log(f"[tp] rank {rank} {arch}: split state on the mesh")
-    state, split = run(sstep, state, keep if rank == 0 else None)
+    state, split = run(sstep, lambda: init_train_state(init(), opt, mesh=mesh),
+                       keep if rank == 0 else None, replay=False)
+    split["routes_digest"], split["route_calls"] = _routes_digest(routes), len(routes)
     log(f"[tp] rank {rank} {arch}: split steps {split['step_ms']} ms")
     s_params = _host({k: fsdp.whole(p) for k, p in state["params"].items()})
     t0 = time.perf_counter()
@@ -3831,14 +3879,14 @@ def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
     out = {"split": split}
     if rank == 0:
         _, pstep = ltrain.make_step(cfg, args)
-        state, out["plain"] = run(pstep, init_train_state(init(), opt))
+        state, out["plain"] = run(pstep, lambda: init_train_state(init(), opt))
         p_params = _host(state["params"])
         del state
         gc.collect()
         torch.cuda.empty_cache()
         cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
         _, fstep = ltrain.make_step(cfg32, args)
-        state, out["f32"] = run(fstep, init_train_state(
+        state, out["f32"] = run(fstep, lambda: init_train_state(
             {k: v.float() for k, v in init().items()}, opt))
         f_params = _host(state["params"])
         del state
@@ -3856,8 +3904,9 @@ def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
 def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     """Prefill and greedy decode through a model rank's engine (both ranks;
     the prefill counted by ``op_analysis`` on the card; K2's and K3's
-    inputs kept in ``keep`` on rank 0), then on rank 0 the plain bf16 and
-    f32 engines fed the split run's tokens."""
+    inputs kept in ``keep`` on rank 0; the moe expert choices recorded),
+    then on rank 0 the plain bf16 and f32 engines fed the split run's
+    tokens and expert choices."""
     import torch.distributed as dist
 
     from repro_torch.launch import op_analysis
@@ -3868,12 +3917,14 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt))
     max_len = prompt + gen + 1
 
+    routes = []
+
     def serve(eng, tokens=None, keep=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         seen = {}
         reset_counts()
-        with kernel_shapes(seen, keep):
+        with kernel_shapes(seen, keep), pinned_routes(routes, tokens is not None) as pinned:
             logits, cache = eng.prefill(prompts)
             outs, chosen = [logits.float().cpu()], []
             for i in range(gen):
@@ -3885,7 +3936,8 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "kernel_shapes": {k: sorted(v) for k, v in seen.items()},
                "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
-               "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0}
+               "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0,
+               "routes_moved": pinned["moved"]}
         del cache
         return res, outs, chosen
 
@@ -3895,6 +3947,7 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     split, s_logits, tokens = serve(eng, keep=keep if rank == 0 else None)
+    split["routes_digest"], split["route_calls"] = _routes_digest(routes), len(routes)
     log(f"[tp] rank {rank} {arch}: split prefill and {gen} decode steps")
     tok = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
 
@@ -4013,6 +4066,8 @@ def _floats(x):
 def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
     """The ``tp`` phase's gates for one model (module constants): rows,
     {kernel: {path: launches}} and the gates that failed."""
+    from repro_torch.models.lm import padded_experts
+
     cfg = _tp_cfg(arch)
     _, steps, _, _, gen = TP_MODELS[arch]
     parts = split_parts(cfg, TP_RANKS)
@@ -4024,6 +4079,9 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
         want_shapes["flash_attention"] = [list(heads)]
     if cfg.family in ("ssm", "hybrid"):
         want_shapes["selective_scan"] = [di]
+    experts = padded_experts(cfg) // (TP_RANKS if parts["experts"] else 1)
+    if cfg.family == "moe":
+        want_shapes["experts"] = [experts]
     want_train = expected_train_counts(cfg, cfg.grad_accum * steps)
     want_serve = {n: v for n, v in expected_counts(cfg, gen).items() if n in counters()}
     r0 = ranks[0]
@@ -4048,6 +4106,7 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
         row = {"arch": arch, "part": kind, "layers": cfg.num_layers, "parts": parts,
                "per_rank_heads": list(heads) if cfg.family != "ssm" else None,
                "per_rank_channels": di if cfg.ssm_d_inner else None,
+               "per_rank_experts": experts or None,
                "dot_flops_split": split["dot_flops"], "dot_flops_plain": plain["dot_flops"],
                "dot_flops_whole_parts": whole, "dot_flops_closed_form": want_dot,
                "split_share": split["dot_flops"] / plain["dot_flops"],
@@ -4090,10 +4149,18 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
             fails.append(f"{arch} rank {rank}: the cache holds {sv['kv_heads']} kv heads")
         if rank and tr["losses"] != r0[arch]["train"]["split"]["losses"]:
             fails.append(f"{arch}: the model ranks' losses differ")
+        for part, res_ in (("train", tr), ("serve", sv)):
+            mine = r0[arch][part]["split"]
+            if (res_["routes_digest"], res_["route_calls"]) != (mine["routes_digest"],
+                                                                mine["route_calls"]) \
+                    or (cfg.family == "moe") != (res_["route_calls"] > 0):
+                fails.append(f"{arch} {part} rank {rank}: expert choices {res_['route_calls']} "
+                             f"calls {res_['routes_digest']}, rank 0 {mine['route_calls']} "
+                             f"{mine['routes_digest']}")
     # K2 and K3 on the inputs each met on rank 0 (forward, and backward
     # where training took it), held against their plain versions
     checks = r0[arch].get("kernel_checks", [])
-    for name in want_shapes:
+    for name in set(want_shapes) & {"flash_attention", "selective_scan"}:
         mine = [c for c in checks if c["kernel"] == name]
         if not mine or not any("bwd_rel_err" in c for c in mine):
             fails.append(f"{arch}: {name} was not checked forward and backward at the "
@@ -4128,6 +4195,12 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
                                                          "split_plain")}
                                   for st in ts["logits"]],
                  "greedy_tokens_counted": counted, "greedy_tokens_equal": tokens_ok,
+                 "route_calls": {p_: r0[arch][p_]["split"]["route_calls"]
+                                 for p_ in ("train", "serve")},
+                 "routes_digest": {p_: r0[arch][p_]["split"]["routes_digest"]
+                                   for p_ in ("train", "serve")},
+                 "routes_moved": {f"{p_} {r}": r0[arch][p_][r]["routes_moved"]
+                                  for p_ in ("train", "serve") for r in ("plain", "f32")},
                  "step_ms": {f"rank {r}": res[arch]["train"]["split"]["step_ms"]
                              for r, res in enumerate(ranks)}
                  | {"plain": t0_["plain"]["step_ms"]},

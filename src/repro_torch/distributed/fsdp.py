@@ -34,7 +34,10 @@ and cut to the rank's block, its gradient then summed over ``model`` too:
 each model rank computed only its own block's.  Every other leaf is
 gathered along ``model`` like the data axes and computed whole on each
 model rank; its gradient is the same there and is not reduced along
-``model``.
+``model``.  So the moe family's experts reach each rank as its block of
+the experts, their gradients staying on their rank, and the router, whose
+spec has no ``model``, is whole on every rank with its gradient reduced
+over the data axes only, like the norms'.
 
 SOLAR's nodes are the data axis: data rank ``r`` trains the ``r``-th block
 of ``batch_mesh_dims``' rows of the global batch (:func:`local_rows`), which

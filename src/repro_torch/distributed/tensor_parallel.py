@@ -32,12 +32,23 @@ is an all-reduce (serving's logit gather aside).
 chose: attention where ``wq`` is split over ``model`` on its heads and the
 kv heads either divide the axis or are repeated to it (``CacheSpec``'s
 repeat case: a rank computes the one kv head its block of query heads
-reads), the MLP where ``wi_gate`` is split on its hidden, the Mamba mixer
-where ``conv_w`` is split on DI, the vocabulary (the embedding's rows and
-the logits' columns) where the output weight (``embed`` when tied, else
-``unembed``) is split on it.  A part that does not split is computed whole
-on every model rank from leaves gathered along ``model``, as before.  Only
-the dense, ssm and hybrid families split; the others get no plan.
+reads), the MLP where ``wi_gate`` (the moe family: the shared expert's
+``ws_gate``) is split on its hidden, the routed experts where ``we_gate``
+is split on its experts, the Mamba mixer where ``conv_w`` is split on DI,
+the vocabulary (the embedding's rows and the logits' columns) where the
+output weight (``embed`` when tied, else ``unembed``) is split on it.  A
+part that does not split is computed whole on every model rank from leaves
+gathered along ``model``, as before.  The dense, moe, vlm, ssm and hybrid
+families split; the encoder-decoder gets no plan.
+
+The moe family routes whole on every rank (the router is no member: its
+spec has no ``model``) and computes only the rank's experts' capacity
+slots, as GSPMD does with the JAX layout's experts over ``model``: the
+expert region's input and the gates go through *f*, the routed and the
+shared expert's partial sums through one *g* (``layers.moe_layer``).  The
+vlm family's decoder splits as dense; ``mm_proj`` is no member, so it is
+gathered whole (its spec puts ``model`` on the output ``d``, which the
+replicated residual stream must not split).
 
 A plan's ``leaves`` say which block of its split dim the rank uses of each
 leaf of a split part.  A leaf stored split on that dim (``LOCAL``) reaches
@@ -69,10 +80,12 @@ __all__ = ["KEY", "LOCAL", "SLICE", "HALVES", "SplitPlan", "split_plan", "block"
 #: where the model's params carry the plan
 KEY = "tensor_parallel"
 LOCAL, SLICE, HALVES = "local", "slice", "halves"
-FAMILIES = ("dense", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
 
 _ATTN = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
 _MLP = ("wi_gate", "wi_up", "wo_mlp")
+_SHARED = ("ws_gate", "ws_up", "ws_down")
+_EXPERTS = ("we_gate", "we_up", "we_down")
 _MAMBA = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "a_log",
           "d_skip", "out_proj")
 
@@ -102,6 +115,7 @@ class SplitPlan:
     mlp: bool
     mamba: bool
     vocab: bool
+    experts: bool
     leaves: dict
 
     def block(self, n: int) -> tuple[int, int]:
@@ -129,17 +143,20 @@ def split_plan(cfg, params: dict, mesh) -> SplitPlan | None:
 
     fam, k = cfg.family, cfg.num_kv_heads
     out_w = "embed" if cfg.tie_embeddings else "unembed"
+    mlp = _SHARED if fam == "moe" else _MLP
     parts = {
         "attention": fam != "ssm" and stored_split("layers.wq")
         and (k % size == 0 or size % k == 0),
-        "mlp": fam in ("dense", "hybrid") and stored_split("layers.wi_gate"),
+        "mlp": stored_split(f"layers.{mlp[0]}"),
         "mamba": fam in ("ssm", "hybrid") and stored_split("layers.ssm.conv_w"),
         "vocab": stored_split(out_w),
+        "experts": stored_split("layers.we_gate"),
     }
     members = {"attention": [f"layers.{n}" for n in _ATTN],
-               "mlp": [f"layers.{n}" for n in _MLP],
+               "mlp": [f"layers.{n}" for n in mlp],
                "mamba": [f"layers.ssm.{n}" for n in _MAMBA],
-               "vocab": ["embed", "unembed"]}
+               "vocab": ["embed", "unembed"],
+               "experts": [f"layers.{n}" for n in _EXPERTS]}
     leaves = {}
     for part, split in parts.items():
         for name in members[part] if split else ():

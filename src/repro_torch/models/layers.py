@@ -23,7 +23,8 @@ never a DTensor and has no layout to pin.  Where JAX's constraints split
 the SwiGLU hidden or the Mamba channels over ``model``, :func:`swiglu_mlp`
 and :func:`mamba_block` take ``split`` (a ``tensor_parallel.SplitPlan``
 whose part splits): their weights are then the model rank's block, and the
-region's input and output pass the plan's *f* and *g*.
+region's input and output pass the plan's *f* and *g*.  So does
+:func:`moe_layer` where the JAX layout puts the experts over ``model``.
 """
 from __future__ import annotations
 
@@ -316,7 +317,8 @@ def route(x, router_w, *, top_k: int, num_real_experts: int):
 
 def moe_layer(x, router_w, we_gate, we_up, we_down, *, top_k: int,
               num_real_experts: int, capacity_factor: float = 1.25,
-              group_size: int = 256, shared: tuple | None = None):
+              group_size: int = 256, shared: tuple | None = None, split=None,
+              shared_split=None):
     """Top-k token-choice MoE with grouped one-hot dispatch, as the JAX
     package computes it.  x [B, S, D]; router_w [D, E_pad]; we_gate, we_up
     [E_pad, D, F]; we_down [E_pad, F, D]; ``shared`` (wi_gate [D, F_s], wi_up,
@@ -327,7 +329,24 @@ def moe_layer(x, router_w, we_gate, we_up, we_down, *, top_k: int,
     group.  A choice's slot is the running count of earlier choices of its
     expert in token-major order (token, then its k choices); choices past
     ``cap`` are dropped.  Which choices drop depends on that order, so the
-    dispatch and combine stay one-hot einsums, not a scatter."""
+    dispatch and combine stay one-hot einsums, not a scatter.
+
+    With ``split`` (a ``tensor_parallel.SplitPlan`` whose experts split) the
+    expert leaves hold the model rank's block of the E_pad experts.  Every
+    rank routes the whole, replicated ``x`` and counts slots over all
+    experts (the running count is per expert, so it commutes with cutting
+    the expert axis), then dispatches, computes and combines only its own
+    experts' slots.  ``x`` and the gates enter that region through *f*: a
+    rank's combine reads only its experts' gates, so their gradient (and,
+    through the router, ``x``'s) is summed over ``model``.  The
+    probabilities take no *f*: the aux loss is computed whole on every rank
+    and its gradient is already the whole.  With ``shared_split`` the
+    shared expert's leaves hold the rank's block of its hidden.  Where both
+    split, one *g* all-reduces the sum of the two partial sums; a region
+    that splits alone has its own *f* and *g*.  A rank whose block holds
+    only pad experts still computes their empty slots, as GSPMD does."""
+    from repro_torch.distributed import tensor_parallel as tp
+
     b, s, d = x.shape
     e_pad = router_w.shape[1]
     gs = min(group_size, s)
@@ -345,12 +364,21 @@ def moe_layer(x, router_w, we_gate, we_up, we_down, *, top_k: int,
     disp = onehot * (pos_in_expert < cap)
     pos = torch.einsum("bnske,bnske->bnsk", pos_in_expert, disp)   # chosen slot
     slot_oh = F.one_hot(pos.long(), cap).float()                    # [b,ng,gs,k,cap]
+    xr = x
+    if split is not None:
+        first, n = split.block(e_pad)
+        if we_gate.shape[0] != n:
+            raise ValueError(f"expert leaves of {we_gate.shape[0]} experts are not model "
+                             f"rank {split.rank}'s block of {n} of {e_pad}")
+        disp = disp[..., first:first + n]
+        xr, gates = tp.copy_in(x, split), tp.copy_in(gates, split)
     # dispatch [b,ng,gs,e,cap]: token -> (expert, slot); combine adds the gate
     dispatch = torch.einsum("bnske,bnskc->bnsec", disp, slot_oh)
     combine = torch.einsum("bnske,bnskc->bnsec", gates[..., None] * disp, slot_oh)
 
     cd = x.dtype
-    xe = torch.einsum("bnsd,bnsec->bnecd", xg, dispatch.to(cd))      # [b,ng,e,cap,d]
+    xe = torch.einsum("bnsd,bnsec->bnecd", xr.reshape(b, ng, gs, d),
+                      dispatch.to(cd))                               # [b,ng,e,cap,d]
     h = F.silu(torch.einsum("bnecd,edf->bnecf", xe, we_gate)) * torch.einsum(
         "bnecd,edf->bnecf", xe, we_up)
     ye = torch.einsum("bnecf,efd->bnecd", h, we_down)
@@ -359,8 +387,13 @@ def moe_layer(x, router_w, we_gate, we_up, we_down, *, top_k: int,
     me = probs.mean(dim=(0, 1, 2))                     # mean router prob
     ce = onehot.sum(dim=3).mean(dim=(0, 1, 2))         # token fraction
     aux = num_real_experts * torch.sum(me * ce) / top_k
+    if shared is not None and split is not None and shared_split is not None:
+        y = y + swiglu_mlp(xr, *shared)    # the rank's shared hidden: a partial sum
+        shared = None
+    if split is not None:
+        y = tp.reduce_out(y, split)
     if shared is not None:
-        y = y + swiglu_mlp(x, *shared)
+        y = y + swiglu_mlp(x, *shared, split=shared_split)
     return y, aux
 
 

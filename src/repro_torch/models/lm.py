@@ -39,10 +39,12 @@ skips the patch positions.  The JAX package's unrolled decode step
 Params that carry a split plan (``distributed/tensor_parallel.py``: the
 sharded train step's view, ``tensor_parallel.local_view`` for serving)
 hold a model rank's block of each part that splits along ``model``:
-attention runs K2 on the rank's query and kv heads, the MLP on its hidden
-units, the Mamba mixer K3 on its channels, the embedding and the logits on
-its vocabulary rows; row-parallel outputs are all-reduced, the residual
-stream and every norm stay whole.  The cache then holds the rank's kv heads
+attention runs K2 on the rank's query and kv heads, the MLP (the moe
+family: the shared expert) on its hidden units, the moe experts on its
+block of the experts (routing stays whole), the Mamba mixer K3 on its
+channels, the embedding and the logits on its vocabulary rows;
+row-parallel outputs are all-reduced, the residual stream, every norm and
+the vlm family's ``patches @ mm_proj`` stay whole.  The cache then holds the rank's kv heads
 and channels, and prefill and decode return the whole vocabulary's logits.
 """
 from __future__ import annotations
@@ -243,7 +245,9 @@ def _layer(tree, i: int) -> dict:
 def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False, plan=None):
     """ln2, then the SwiGLU MLP or, in the moe family, the experts.  Returns
     (x + y, the moe aux loss or None).  A decode step routes each token as a
-    group of its own, with a capacity factor of at least 2."""
+    group of its own, with a capacity factor of at least 2.  In the moe
+    family the plan's ``experts`` part splits the routed experts and its
+    ``mlp`` part the shared expert's hidden."""
     h2 = L.rms_norm(x, lp["ln2"], cfg.norm_eps, impl=norm_impl)
     if cfg.family != "moe":
         return x + L.swiglu_mlp(h2, lp["wi_gate"], lp["wi_up"], lp["wo_mlp"],
@@ -254,7 +258,8 @@ def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False, plan=Non
     y, aux = L.moe_layer(h2, lp["router"], lp["we_gate"], lp["we_up"], lp["we_down"],
                          top_k=cfg.top_k, num_real_experts=cfg.num_experts,
                          capacity_factor=max(cf, 2.0) if decode else cf,
-                         group_size=1 if decode else 256, shared=shared)
+                         group_size=1 if decode else 256, shared=shared,
+                         split=_part(plan, "experts"), shared_split=_part(plan, "mlp"))
     return x + y, aux
 
 

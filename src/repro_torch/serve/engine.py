@@ -5,7 +5,8 @@ decoder-only dense, moe, ssm and hybrid families through ``models/lm.py``,
 the encoder-decoder through ``models/encdec.py`` (``generate(...,
 source=)``).  Like the JAX engine it takes no patch embeddings, so it
 refuses the vlm family: serve that through ``lm.prefill(..., patches=)`` and
-``lm.decode_step``.  ``generate_from_tier`` feeds prompts from the
+``lm.decode_step`` (a model rank's: on ``tensor_parallel.local_view``
+params).  ``generate_from_tier`` feeds prompts from the
 multi-tenant data tier (:mod:`repro_torch.serve.datatier`).
 """
 from __future__ import annotations
@@ -35,8 +36,8 @@ class ServeEngine:
     On a ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; every rank
     builds its engine from the same whole ``params``) the engine is a model
     rank's: it keeps the rank's block of each part that splits
-    (``tensor_parallel.local_view``), its cache the rank's kv heads and
-    channels, ``model_axis`` is the mesh's, and every rank must call
+    (``tensor_parallel.local_view``: the moe family's experts too), its
+    cache the rank's kv heads and channels, ``model_axis`` is the mesh's, and every rank must call
     ``prefill`` and ``step`` alike (their all-reduces pair up).  The logits
     are the whole vocabulary's on every rank."""
 

@@ -26,9 +26,10 @@ same update as A, by Eq. (3), in every family but moe, whose router aux loss
 is a function of each microbatch's tokens.
 
 Where the mesh has a ``model`` axis and ``cfg`` is a model of a family that
-splits (``tensor_parallel.split_plan``), the gathered view hands the model
-each split part's ``model`` blocks and the plan, and the model ranks
-compute their own heads, hidden units, channels and vocabulary.  The loss
+splits (``tensor_parallel.split_plan``: dense, moe, vlm, ssm, hybrid), the
+gathered view hands the model each split part's ``model`` blocks and the
+plan, and the model ranks compute their own heads, hidden units, experts,
+channels and vocabulary.  The loss
 is the same on every model rank, so ``Σw`` and the loss sum are still
 reduced over the data axes only.
 """

@@ -41,11 +41,13 @@ def _config(job):
 
 
 def _recording(seen: dict):
-    """Patch the model's attention and selective scan to record, per call,
-    (query heads, kv heads) and the scan's channels; returns the undo."""
+    """Patch the model's attention, selective scan, moe layer and router to
+    record, per call, (query heads, kv heads), the scan's channels, the
+    experts the moe layer's expert leaves hold and the router's expert
+    choices; returns the undo."""
     from repro_torch.models import layers as L
 
-    attention, scan = L.attention, L._selective_scan
+    attention, scan, moe, route = L.attention, L._selective_scan, L.moe_layer, L.route
 
     def rec_attention(q, k, v, **kw):
         seen.setdefault("attention", []).append((int(q.shape[1]), int(k.shape[1])))
@@ -55,10 +57,20 @@ def _recording(seen: dict):
         seen.setdefault("scan", []).append(int(u.shape[-1]))
         return scan(u, *a, **kw)
 
-    L.attention, L._selective_scan = rec_attention, rec_scan
+    def rec_moe(x, router_w, we_gate, *a, **kw):
+        seen.setdefault("experts", []).append(int(we_gate.shape[0]))
+        return moe(x, router_w, we_gate, *a, **kw)
+
+    def rec_route(x, router_w, **kw):
+        out = route(x, router_w, **kw)
+        seen.setdefault("routes", []).append(out[2].numpy().copy())
+        return out
+
+    L.attention, L._selective_scan, L.moe_layer, L.route = (rec_attention, rec_scan,
+                                                            rec_moe, rec_route)
 
     def undo():
-        L.attention, L._selective_scan = attention, scan
+        L.attention, L._selective_scan, L.moe_layer, L.route = attention, scan, moe, route
     return undo
 
 
@@ -99,29 +111,49 @@ def _train(mesh, job):
 
 def _serve(mesh, job):
     """Prefill and ``gen`` greedy decode steps through a model rank's
-    ``ServeEngine(mesh=)``: the logits of each, the cache's kv heads and
-    SSM channels, and what the model's attention and scan were called on."""
+    ``ServeEngine(mesh=)`` (the vlm family, which the engine refuses:
+    ``lm.prefill(..., patches=)`` and ``lm.decode_step`` on the rank's
+    ``local_view``): the logits of each, the cache's kv heads and SSM
+    channels, and what the model's attention, scan and router were called
+    on."""
     import torch
 
     from repro_torch.convert import lm_params_from_jax
+    from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
 
     cfg = _config(job)
     params = lm.nested_params(lm_params_from_jax(job["params"], "cpu"))
-    eng = ServeEngine(cfg, params, max_len=job["max_len"], mesh=mesh, device="cpu")
+    if cfg.family == "vlm":
+        view = tp.local_view(params, tp.split_plan(cfg, lm.flat_params(params), mesh))
+        spec = lm.CacheSpec.build(cfg, job["max_len"], mesh.size(
+            tuple(mesh.mesh_dim_names).index("model")))
+        patches = torch.from_numpy(job["patches"])
+
+        def prefill(prompts):
+            return lm.prefill(view, torch.as_tensor(prompts, dtype=torch.long), cfg, spec,
+                              patches=patches)
+
+        def step(cache, tokens):
+            return lm.decode_step(view, cache, tokens, cfg, spec)
+    else:
+        eng = ServeEngine(cfg, params, max_len=job["max_len"], mesh=mesh, device="cpu")
+        prefill, step = eng.prefill, eng.step
     seen = {}
     undo = _recording(seen)
     try:
-        logits, cache = eng.prefill(job["prompts"])
-        steps = [logits.numpy()]
-        for _ in range(job["gen"]):
-            logits, cache = eng.step(cache, torch.argmax(logits, dim=-1))
-            steps.append(logits.numpy())
+        with torch.no_grad():
+            logits, cache = prefill(job["prompts"])
+            steps = [logits.numpy()]
+            for _ in range(job["gen"]):
+                logits, cache = step(cache, torch.argmax(logits, dim=-1))
+                steps.append(logits.numpy())
     finally:
         undo()
     return {"logits": steps, "seen": seen,
             "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
+            "int8": "k" in cache and cache["k"].dtype == torch.int8,
             "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0}
 
 

@@ -20,10 +20,10 @@ JAX package.  For the families whose loss is a sum over rows (all but moe,
 whose router aux loss depends on a microbatch's tokens) it is also the step
 with grad_accum A, by Eq. (3): checked for hymba-1.5b and qwen2-0.5b.
 
-Where the model splits its compute along ``model`` (the dense and hybrid
-families here: ``distributed/tensor_parallel.py``), the sharded step's f32
-operations are not the unsharded step's: a row-parallel product sums its
-halves over two ranks.  Reduced hymba-1.5b's gradients move by 4e-6 of
+Where the model splits its compute along ``model`` (every family here,
+the moe family by experts: ``distributed/tensor_parallel.py``), the
+sharded step's f32 operations are not the unsharded step's: a
+row-parallel product sums its halves over two ranks.  Reduced hymba-1.5b's gradients move by 4e-6 of
 their max when one leaf moves by an ulp, so no two orders of its f32
 operations agree within 1e-5: its split step is held to the unsharded step
 at ``SPLIT_TOL``.  The split steps are also held, at the bounds of an
@@ -79,7 +79,7 @@ pytestmark = pytest.mark.dist
 
 ARCHS = ["hymba-1.5b", "qwen2-0.5b", "qwen2-moe-a2.7b"]
 LINEAR = ["hymba-1.5b", "qwen2-0.5b"]  # no per-microbatch term in the loss
-SPLIT = ["hymba-1.5b", "qwen2-0.5b"]   # split along model at (2, 2)
+SPLIT = ["hymba-1.5b", "qwen2-0.5b"]   # split at (2, 2), held to the replica step
 SPLIT_TOL = {"hymba-1.5b": 1e-4}        # shard tol against the unsharded step
 ACCUM, DATA = 2, 2
 B, S = 8, 32                            # 2 nodes x capacity 4
