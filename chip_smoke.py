@@ -171,10 +171,13 @@ Phases, all run in order, each of which must pass:
                runs the plain bf16 and f32 programs.  Each rank's dot FLOPs
                and kernel work (``op_analysis`` on the card) must equal the
                reckoning, which must equal the plain program's whole parts
-               (qwen2-moe-a2.7b's router and slot products among them) and
-               half the rest; every K2 and K3 launch takes the rank's heads
-               and channels and every moe layer the rank's 32 of 64
-               experts, the launch counts are the plain run's, both ranks'
+               (qwen2-moe-a2.7b's router and slot products among them,
+               whisper-medium's logits) and half the rest; every K2 and K3
+               launch takes the rank's heads and channels and every moe
+               layer the rank's 32 of 64 experts, each rank's cache holds
+               its kv heads (whisper-medium's self- and cross-attention
+               caches) or, hymba-1.5b's, its 512 of 1024 slots, the launch
+               counts are the plain run's, both ranks'
                expert choices are equal (digests) and the plain runs
                replay rank 0's (``pinned_routes``, tokens moved reported),
                each rank's peak lies below the plain run's, every K2 and K3
@@ -508,13 +511,22 @@ DRYRUN_MAX_SHARE = 1.05
 # Tensor parallelism (``repro_torch.distributed.tensor_parallel``): two model
 # ranks of a (data 1, model 2) mesh, two processes on the one card over a
 # gloo group (NCCL refuses two ranks on one device), bf16, random weights
-# from seed 0.  {arch: (layers (None: whole), train steps, serving batch,
-# prompt, decode steps)}; the depths are cut (qwen2-0.5b 12 of 24 layers,
-# hymba-1.5b 4 of 32) so that the script keeps to its time limit.
+# from seed 0.  {arch: (layers (None: whole; the encoder's too), train
+# steps, serving batch, prompt, decode steps, train sequence)}; the depths
+# are cut (qwen2-0.5b 12 of 24 layers, hymba-1.5b 4 of 32, whisper-medium
+# 2 + 2 of 24 + 24) so that the script keeps to its time limit.
 # qwen2-0.5b splits everything: K2 on 7 of 14 query heads and 1 of 2 kv
 # heads, a 2432-wide MLP, 75968 vocabulary columns; hymba-1.5b's 25 heads
 # and 32001 vocabulary do not divide 2, so its attention and logits run
-# whole on both ranks, K3 on 1600 of 3200 channels and a 2752-wide MLP.
+# whole on both ranks, K3 on 1600 of 3200 channels and a 2752-wide MLP,
+# and its 5 kv heads do not divide 2 either, so each rank's decode cache
+# holds 512 of its ring's 1024 slots (the prompt of 1536 wraps it) and
+# decode attends them with a partial softmax all-reduced over the ranks.
+# whisper-medium at full width (1500 source frames): K2 on 8 of 16 heads
+# in its encoder's self-attention and its decoder's self- and
+# cross-attention, 2048 of the GELU MLPs' 4096 hidden units; its
+# vocabulary of 51865 does not divide 2, so its tied logits run whole; it
+# trains on 448-token rows, whisper's longest decode.
 # qwen2-moe-a2.7b at full width, 2 of its 24 layers: K2 on 8 of 16 query
 # and kv heads at hd 128, 32 of the 64 padded experts a rank (rank 1's
 # block holds the pad experts 60-63), 2816 of the shared expert's 5632
@@ -522,9 +534,11 @@ DRYRUN_MAX_SHARE = 1.05
 # its plain bf16 and f32 runs beside the split state fit the card at 2
 # layers.  Each trains on lm_train's 16 rows of 2048
 # tokens a step in its config's microbatches.
-TP_MODELS = {"qwen2-0.5b": (12, 2, 4, 1536, 32), "hymba-1.5b": (4, 2, 4, 1536, 0),
-             "qwen2-moe-a2.7b": (2, 2, 4, 1536, 8)}
-TP_ROWS, TP_SEQ = 16, 2048
+TP_MODELS = {"qwen2-0.5b": (12, 2, 4, 1536, 32, 2048),
+             "hymba-1.5b": (4, 2, 4, 1536, 8, 2048),
+             "qwen2-moe-a2.7b": (2, 2, 4, 1536, 8, 2048),
+             "whisper-medium": (2, 2, 4, 64, 8, 448)}
+TP_ROWS = 16
 TP_RANKS = 2
 TP_TIMEOUT_S = 600
 
@@ -1041,7 +1055,7 @@ def phase_small_encdec():
         return real_attn(q, k, v, causal=causal or q.shape[2] != k.shape[2], window=window,
                          **kw)
 
-    def erf_gelu(x, wi, bi, wo, bo):
+    def erf_gelu(x, wi, bi, wo, bo, split=None):  # the engine's params are whole
         return F.gelu((x @ wi) + bi) @ wo + bo
 
     faults = {}
@@ -1263,13 +1277,12 @@ def serve_model(arch, batch, prompt, gen) -> dict:
     """One serving path at full width and depth; returns its main-run launch
     counts."""
     from repro_torch.configs import get_config
-    from repro_torch.models import encdec, lm
+    from repro_torch.models import lm
     from repro_torch.serve.engine import ServeEngine
 
     cfg = get_config(arch)
     t0 = time.perf_counter()
-    init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
-    params = init(cfg, seed=0, device="cuda")
+    params = init_params(cfg)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     log(f"[serve] {arch} full width and depth ({cfg.family}, {cfg.num_layers}L "
@@ -2731,8 +2744,7 @@ def phase_lm_small():
             model, impl_names = lm, ("attn_impl", "ssm_impl", "norm_impl")
         kernels = dict.fromkeys(impl_names, "pallas")
         plain = dict.fromkeys(impl_names, "ref")
-        init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
-        flat = lm.flat_params(init(cfg, seed=0, device="cuda"))
+        flat = lm.flat_params(init_params(cfg))
         g = torch.Generator(device="cuda").manual_seed(1)
         for name, t in flat.items():  # the zero-initialised norm scales and biases
             if not t.abs().max().item():
@@ -3643,12 +3655,20 @@ class _PlanMesh:
         return 0
 
 
+def init_params(cfg, seed: int = 0, device="cuda") -> dict:
+    """The family's init (nested)."""
+    from repro_torch.models import encdec, lm
+
+    init = encdec.init_encdec if cfg.family == "encdec" else lm.init_lm
+    return init(cfg, seed=seed, device=device)
+
+
 def split_parts(cfg, model_axis: int, data_axis: int = 1) -> dict:
     """{part: whether it splits} of ``cfg``'s plan on a (data, model) mesh."""
     from repro_torch.distributed import tensor_parallel as tp
     from repro_torch.models import lm
 
-    plan = tp.split_plan(cfg, lm.flat_params(lm.init_lm(cfg, device="meta")),
+    plan = tp.split_plan(cfg, lm.flat_params(init_params(cfg, device="meta")),
                          _PlanMesh((data_axis, model_axis)))
     return {p: bool(plan is not None and getattr(plan, p))
             for p in ("attention", "mlp", "mamba", "vocab", "experts")}
@@ -3661,7 +3681,9 @@ def whole_dot_flops(cfg, parts: dict, rows: int, seq: int, kind: str, k2_dot: in
     record), the logits (2·d·V a position that computes them) and, in the
     moe family, the router (2·d·E_pad a token and layer) and the chosen
     slot's product over every expert (2·E_pad a choice), which every rank
-    computes whole.  A training step (remat, no two-level scan) runs each
+    computes whole; the encoder-decoder, whose heads and hidden split,
+    leaves only its tied logits whole (its embedding is a gather, no dot).
+    A training step (remat, no two-level scan) runs each
     four times: forward, remat's recompute (which stops before a block's
     last product, the MLP's or the shared expert's, not before attention's
     or the router's; the chunked CE recomputes its logits) and the
@@ -3672,16 +3694,18 @@ def whole_dot_flops(cfg, parts: dict, rows: int, seq: int, kind: str, k2_dot: in
     computes ``w + (plain - w) / model_axis`` (:func:`split_dot_flops`)."""
     from repro_torch.models.lm import padded_experts
 
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid", "encdec"):
         raise ValueError(f"no closed form for the {cfg.family} family")
-    if (not parts["mlp"] and (cfg.family in ("dense", "hybrid") or
+    if (not parts["mlp"] and (cfg.family in ("dense", "hybrid", "encdec") or
                               (cfg.family == "moe" and cfg.num_shared_experts))) or \
             (not parts["mamba"] and cfg.family in ("ssm", "hybrid")) or \
-            (not parts["experts"] and cfg.family == "moe"):
+            (not parts["experts"] and cfg.family == "moe") or \
+            (not parts["attention"] and cfg.family == "encdec"):
         raise ValueError("the closed form leaves only attention, the vocabulary and the "
-                         "router whole")
+                         "router whole (the encoder-decoder's: the vocabulary)")
     train = kind == "train"
-    if train and (not cfg.remat or cfg.scan_block):
+    # the encoder-decoder's layer loops ignore scan_block
+    if train and (not cfg.remat or (cfg.scan_block and cfg.family != "encdec")):
         raise ValueError("the closed form takes remat without a two-level scan")
     d, hd, h, k = cfg.d_model, cfg.resolved_head_dim, cfg.num_heads, cfg.num_kv_heads
     tokens, out = rows * seq, 0
@@ -3800,7 +3824,10 @@ def _tp_cfg(arch):
 
     layers = TP_MODELS[arch][0]
     cfg = get_config(arch)
-    return cfg if layers is None else cfg.replace(num_layers=layers)
+    if layers is None:
+        return cfg
+    return cfg.replace(num_layers=layers,
+                       encoder_layers=layers if cfg.encoder_layers else 0)
 
 
 def _host(params: dict) -> dict:
@@ -3839,14 +3866,14 @@ def _tp_train(arch, cfg, mesh, rank, keep) -> dict:
     from repro_torch.models import lm
     from repro_torch.train.step import init_train_state
 
-    steps = TP_MODELS[arch][1]
+    steps, seq = TP_MODELS[arch][1], TP_MODELS[arch][5]
     args = ltrain.build_parser().parse_args(
-        ["train", "--arch", arch, "--seq-len", str(TP_SEQ), *LM_TRAIN_ARGS,
+        ["train", "--arch", arch, "--seq-len", str(seq), *LM_TRAIN_ARGS,
          "--steps", str(steps)])
-    batches = [lm_batch(cfg, TP_ROWS, TP_SEQ, seed=i) for i in range(steps)]
+    batches = [lm_batch(cfg, TP_ROWS, seq, seed=i) for i in range(steps)]
 
     def init():
-        return lm.flat_params(lm.init_lm(cfg, seed=0, device="cuda"))
+        return lm.flat_params(init_params(cfg))
 
     routes = []
 
@@ -3906,15 +3933,19 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     the prefill counted by ``op_analysis`` on the card; K2's and K3's
     inputs kept in ``keep`` on rank 0; the moe expert choices recorded),
     then on rank 0 the plain bf16 and f32 engines fed the split run's
-    tokens and expert choices."""
+    tokens and expert choices (the encoder-decoder: and the same source
+    frames)."""
     import torch.distributed as dist
 
     from repro_torch.launch import op_analysis
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.serve.engine import ServeEngine
 
-    _, _, batch, prompt, gen = TP_MODELS[arch]
-    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (batch, prompt))
+    _, _, batch, prompt, gen, _ = TP_MODELS[arch]
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (batch, prompt))
+    source = (rng.standard_normal((batch, cfg.source_len, cfg.d_model)).astype(np.float32)
+              if cfg.family == "encdec" else None)
     max_len = prompt + gen + 1
 
     routes = []
@@ -3925,7 +3956,7 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
         seen = {}
         reset_counts()
         with kernel_shapes(seen, keep), pinned_routes(routes, tokens is not None) as pinned:
-            logits, cache = eng.prefill(prompts)
+            logits, cache = eng.prefill(prompts, source)
             outs, chosen = [logits.float().cpu()], []
             for i in range(gen):
                 tok = torch.argmax(logits, dim=-1) if tokens is None else tokens[i].cuda()
@@ -3936,12 +3967,14 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                "kernel_shapes": {k: sorted(v) for k, v in seen.items()},
                "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
+               "cross_kv_heads": int(cache["ck"].shape[2]) if "ck" in cache else 0,
+               "slots": int(cache["k"].shape[3]) if "k" in cache else 0,
                "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0,
                "routes_moved": pinned["moved"]}
         del cache
         return res, outs, chosen
 
-    params = lm.init_lm(cfg, seed=0, device="cuda")
+    params = init_params(cfg)
     eng = ServeEngine(cfg, params, max_len=max_len, mesh=mesh, device="cuda")
     del params
     gc.collect()
@@ -3951,11 +3984,14 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     log(f"[tp] rank {rank} {arch}: split prefill and {gen} decode steps")
     tok = torch.as_tensor(prompts, dtype=torch.long, device="cuda")
 
-    def prefill(t):  # as the dry run's program: under no_grad
+    def prefill(t, src):  # as the dry run's program: under no_grad
         with torch.no_grad():
+            if cfg.family == "encdec":
+                return encdec.prefill(eng.params, t, src, cfg, eng.spec)
             return lm.prefill(eng.params, t, cfg, eng.spec)
 
-    card = op_analysis.program_stats(prefill, tok)
+    card = op_analysis.program_stats(
+        prefill, tok, None if source is None else torch.from_numpy(source).cuda())
     split["card"] = {k: card[k] for k in ("dot_flops", "dot_flops_by_dtype", "kernels",
                                           "collectives")}
     del eng, card
@@ -3963,13 +3999,11 @@ def _tp_serve(arch, cfg, mesh, rank, keep) -> dict:
     torch.cuda.empty_cache()
     out = {"split": split}
     if rank == 0:
-        eng = ServeEngine(cfg, lm.init_lm(cfg, seed=0, device="cuda"), max_len=max_len,
-                          device="cuda")
+        eng = ServeEngine(cfg, init_params(cfg), max_len=max_len, device="cuda")
         out["plain"], p_logits, _ = serve(eng, tokens)
         del eng
         cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
-        eng = ServeEngine(cfg32, _to_f32(lm.init_lm(cfg, seed=0, device="cuda")),
-                          max_len=max_len, device="cuda")
+        eng = ServeEngine(cfg32, _to_f32(init_params(cfg)), max_len=max_len, device="cuda")
         out["f32"], f_logits, _ = serve(eng, tokens)
         del eng
         gc.collect()
@@ -4042,10 +4076,10 @@ def _tp_meta_child(result_path: str) -> None:
 
         with dryrun.fake_world(TP_RANKS):
             mesh = init_device_mesh("cpu", (1, TP_RANKS), mesh_dim_names=("data", "model"))
-            for arch, (_, _, batch, prompt, _) in TP_MODELS.items():
+            for arch, (_, _, batch, prompt, _, seq) in TP_MODELS.items():
                 cfg = _tp_cfg(arch)
                 out[arch] = {}
-                for kind, shape in (("train", ShapeConfig("tp", TP_SEQ, TP_ROWS, "train")),
+                for kind, shape in (("train", ShapeConfig("tp", seq, TP_ROWS, "train")),
                                     ("prefill", ShapeConfig("tp", prompt, batch, "prefill"))):
                     out[arch][kind] = {}
                     for run, m in (("split", mesh), ("plain", None)):
@@ -4066,10 +4100,10 @@ def _floats(x):
 def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
     """The ``tp`` phase's gates for one model (module constants): rows,
     {kernel: {path: launches}} and the gates that failed."""
-    from repro_torch.models.lm import padded_experts
+    from repro_torch.models.lm import CacheSpec, padded_experts
 
     cfg = _tp_cfg(arch)
-    _, steps, _, _, gen = TP_MODELS[arch]
+    _, steps, batch, prompt, gen, seq = TP_MODELS[arch]
     parts = split_parts(cfg, TP_RANKS)
     h, k = cfg.num_heads, cfg.num_kv_heads
     heads = (h // TP_RANKS, max(k // TP_RANKS, 1)) if parts["attention"] else (h, k)
@@ -4084,13 +4118,19 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
         want_shapes["experts"] = [experts]
     want_train = expected_train_counts(cfg, cfg.grad_accum * steps)
     want_serve = {n: v for n, v in expected_counts(cfg, gen).items() if n in counters()}
+    # the decode cache's slots a rank: half where neither the heads split nor
+    # the kv heads divide the axis, and the slots do (the sequence split)
+    spec = CacheSpec.build(cfg, prompt + gen + 1, TP_RANKS)
+    seq_split = (cfg.family not in ("ssm", "encdec") and not parts["attention"]
+                 and spec.kv_heads % TP_RANKS != 0 and spec.cache_len % TP_RANKS == 0)
+    want_slots = 0 if cfg.family == "ssm" else spec.cache_len // (TP_RANKS if seq_split else 1)
     r0 = ranks[0]
     rows, launches = [], {name: {} for name in counters()}
     fails = []
     for kind in ("train", "prefill"):
         split, plain = meta[kind]["split"], meta[kind]["plain"]
-        rows_, seq = (TP_ROWS, TP_SEQ) if kind == "train" else TP_MODELS[arch][2:4]
-        whole = whole_dot_flops(cfg, parts, rows_, seq, kind, _k2_dot(plain["kernels"]))
+        rows_, len_ = (TP_ROWS, seq) if kind == "train" else (batch, prompt)
+        whole = whole_dot_flops(cfg, parts, rows_, len_, kind, _k2_dot(plain["kernels"]))
         want_dot = split_dot_flops(plain["dot_flops"], whole, TP_RANKS)
         ratio = {"flash_attention": heads[0] / h if cfg.family != "ssm" else 1,
                  "selective_scan": di / cfg.ssm_d_inner if cfg.ssm_d_inner else 1}
@@ -4145,8 +4185,13 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
                          f"{sv['peak_gib']}; plain {r0[arch]['train']['plain']['peak_gib']}, "
                          f"{r0[arch]['serve']['plain']['peak_gib']}")
         want_kv = 0 if cfg.family == "ssm" else (k // TP_RANKS if parts["attention"] else k)
-        if sv["kv_heads"] != want_kv:
-            fails.append(f"{arch} rank {rank}: the cache holds {sv['kv_heads']} kv heads")
+        if sv["kv_heads"] != want_kv or \
+                sv["cross_kv_heads"] != (want_kv if cfg.family == "encdec" else 0):
+            fails.append(f"{arch} rank {rank}: the cache holds {sv['kv_heads']} kv heads "
+                         f"({sv['cross_kv_heads']} cross)")
+        if sv["slots"] != want_slots:
+            fails.append(f"{arch} rank {rank}: the cache holds {sv['slots']} slots, want "
+                         f"{want_slots}")
         if rank and tr["losses"] != r0[arch]["train"]["split"]["losses"]:
             fails.append(f"{arch}: the model ranks' losses differ")
         for part, res_ in (("train", tr), ("serve", sv)):
@@ -4183,8 +4228,9 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
                 counted += 1
                 tokens_ok &= same
     rows.append({"arch": arch, "part": "against plain", "layers": cfg.num_layers,
-                 "steps": steps, "rows": TP_ROWS, "seq_len": TP_SEQ,
-                 "grad_accum": cfg.grad_accum,
+                 "encoder_layers": cfg.encoder_layers,
+                 "steps": steps, "rows": TP_ROWS, "seq_len": seq,
+                 "grad_accum": cfg.grad_accum, "decode_steps": gen,
                  "losses": {r: t0_[r]["losses"] for r in ("split", "plain", "f32")},
                  "loss_drift_mean": loss_drift,
                  "kernel_checks": checks,
@@ -4209,6 +4255,8 @@ def _tp_check(arch: str, ranks: list, meta: dict) -> tuple[list, dict, list]:
                               for r, res in enumerate(ranks)}
                  | {"plain": [t0_["plain"]["peak_gib"], ts["plain"]["peak_gib"]]},
                  "kv_heads": ts["split"]["kv_heads"],
+                 "cross_kv_heads": ts["split"]["cross_kv_heads"],
+                 "cache_slots": [ts["split"]["slots"], spec.cache_len],
                  "ssm_channels": ts["split"]["ssm_channels"],
                  "counted_s": t0_["split"]["counted_s"],
                  "train_s": ranks[0][arch]["train_s"], "serve_s": ranks[0][arch]["serve_s"]})

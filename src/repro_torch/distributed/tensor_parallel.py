@@ -38,8 +38,20 @@ is split on its experts, the Mamba mixer where ``conv_w`` is split on DI,
 the vocabulary (the embedding's rows and the logits' columns) where the
 output weight (``embed`` when tied, else ``unembed``) is split on it.  A
 part that does not split is computed whole on every model rank from leaves
-gathered along ``model``, as before.  The dense, moe, vlm, ssm and hybrid
-families split; the encoder-decoder gets no plan.
+gathered along ``model``, as before.  Every family splits.  The
+encoder-decoder's attention is its encoder's self-attention and its
+decoder's self- and cross-attention (each split where ``enc_layers.attn.wq``
+is), its MLP the GELU MLPs of both stacks (``wi``, ``bi`` and ``wo``; ``bo``
+is added once, after the all-reduce), its vocabulary the tied ``embed``.
+
+The decode cache of an attention that does not split, whose kv heads do not
+divide the axis, holds the rank's block of the cache's slots instead
+(:func:`cache_block`), as ``cache_sharding`` puts the sequence over
+``model`` where the heads do not divide it: decode attention takes the
+partial softmax over the rank's slots and all-reduces its max, its sum and
+its product with V (``layers.decode_attention``).  A plan exists wherever
+the model axis has more than one rank, even with no part split, so such a
+rank still has the model group.
 
 The moe family routes whole on every rank (the router is no member: its
 spec has no ``model``) and computes only the rank's experts' capacity
@@ -74,13 +86,13 @@ import dataclasses
 import torch
 
 __all__ = ["KEY", "LOCAL", "SLICE", "HALVES", "SplitPlan", "split_plan", "block",
-           "take_block", "local_view", "plan_of", "copy_in", "reduce_out", "embed",
-           "ce_sum", "gather_vocab"]
+           "cache_block", "take_block", "local_view", "plan_of", "all_reduce", "copy_in",
+           "reduce_out", "embed", "ce_sum", "gather_vocab"]
 
 #: where the model's params carry the plan
 KEY = "tensor_parallel"
 LOCAL, SLICE, HALVES = "local", "slice", "halves"
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "encdec")
 
 _ATTN = ("wq", "wk", "wv", "bq", "bk", "bv", "wo")
 _MLP = ("wi_gate", "wi_up", "wo_mlp")
@@ -88,6 +100,12 @@ _SHARED = ("ws_gate", "ws_up", "ws_down")
 _EXPERTS = ("we_gate", "we_up", "we_down")
 _MAMBA = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "a_log",
           "d_skip", "out_proj")
+#: the encoder-decoder's attention and MLP stacks, and their leaves
+_ENCDEC_ATTN = tuple(f"{stack}.{n}" for stack in ("enc_layers.attn", "dec_layers.self",
+                                                  "dec_layers.cross")
+                     for n in ("wq", "wk", "wv", "wo"))
+_ENCDEC_MLP = tuple(f"{stack}.{n}" for stack in ("enc_layers.mlp", "dec_layers.mlp")
+                    for n in ("wi", "bi", "wo"))
 
 
 def block(n: int, size: int, rank: int) -> tuple[int, int]:
@@ -124,9 +142,10 @@ class SplitPlan:
 
 def split_plan(cfg, params: dict, mesh) -> SplitPlan | None:
     """The plan of ``cfg``'s model on ``mesh`` for flat ``params`` (tensors
-    or DTensors: only names and global shapes are read); None where nothing
-    splits (no ``model`` axis or one rank on it, or a family other than
-    ``FAMILIES``)."""
+    or DTensors: only names and global shapes are read); None where no
+    ``model`` axis has more than one rank (or for a family other than
+    ``FAMILIES``).  Where no part splits the plan still carries the model
+    group, for the cache's sequence split (:func:`cache_block`)."""
     from repro_torch.distributed.sharding import names_axis, param_sharding, tp_split_dim
 
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
@@ -143,17 +162,20 @@ def split_plan(cfg, params: dict, mesh) -> SplitPlan | None:
 
     fam, k = cfg.family, cfg.num_kv_heads
     out_w = "embed" if cfg.tie_embeddings else "unembed"
-    mlp = _SHARED if fam == "moe" else _MLP
+    if fam == "encdec":
+        attn, mlp = _ENCDEC_ATTN, _ENCDEC_MLP
+    else:
+        attn = tuple(f"layers.{n}" for n in _ATTN)
+        mlp = tuple(f"layers.{n}" for n in (_SHARED if fam == "moe" else _MLP))
     parts = {
-        "attention": fam != "ssm" and stored_split("layers.wq")
+        "attention": fam != "ssm" and stored_split(attn[0])
         and (k % size == 0 or size % k == 0),
-        "mlp": stored_split(f"layers.{mlp[0]}"),
+        "mlp": stored_split(mlp[0]),
         "mamba": fam in ("ssm", "hybrid") and stored_split("layers.ssm.conv_w"),
         "vocab": stored_split(out_w),
         "experts": stored_split("layers.we_gate"),
     }
-    members = {"attention": [f"layers.{n}" for n in _ATTN],
-               "mlp": [f"layers.{n}" for n in mlp],
+    members = {"attention": attn, "mlp": mlp,
                "mamba": [f"layers.ssm.{n}" for n in _MAMBA],
                "vocab": ["embed", "unembed"],
                "experts": [f"layers.{n}" for n in _EXPERTS]}
@@ -166,6 +188,23 @@ def split_plan(cfg, params: dict, mesh) -> SplitPlan | None:
         leaves["layers.ssm.in_proj"] = (tp_split_dim("layers.ssm.in_proj"), HALVES)
     return SplitPlan(mesh.get_group("model"), size, mesh.get_local_rank("model"),
                      leaves=leaves, **parts)
+
+
+def cache_block(plan: SplitPlan | None, spec) -> tuple[int, int] | None:
+    """(start, length) of the decode cache's slots a model rank holds in a
+    decoder-only model (``models/lm.py``; the encoder-decoder keeps a cache
+    of heads that do not split whole), for a ``CacheSpec`` built for the
+    plan's model axis: its equal block of the ``cache_len`` slots (a ring's
+    included) where attention does not split, the kv heads do not divide
+    the axis and the slots do; None where the cache stays whole (no plan,
+    split heads, heads that divide the axis, or slots that do not), as
+    ``cache_sharding``'s last branch keeps it."""
+    if plan is None or plan.attention or not spec.kv_heads:
+        return None
+    if spec.kv_heads % plan.size == 0 or spec.cache_len % plan.size:
+        return None
+    n = spec.cache_len // plan.size
+    return plan.rank * n, n
 
 
 def take_block(x: torch.Tensor, dim: int, mode: str, plan: SplitPlan) -> torch.Tensor:
@@ -204,7 +243,7 @@ def plan_of(params: dict) -> SplitPlan | None:
     return params.get(KEY)
 
 
-def _all_reduce(x: torch.Tensor, plan: SplitPlan, op=None) -> torch.Tensor:
+def all_reduce(x: torch.Tensor, plan: SplitPlan, op=None) -> torch.Tensor:
     """``x`` summed (or reduced by ``op``) over the model ranks, in a new tensor."""
     import torch.distributed as dist
 
@@ -223,7 +262,7 @@ class _CopyIn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
-        return _all_reduce(grad, ctx.plan), None
+        return all_reduce(grad, ctx.plan), None
 
 
 class _ReduceOut(torch.autograd.Function):
@@ -232,7 +271,7 @@ class _ReduceOut(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, plan):
-        return _all_reduce(x, plan)
+        return all_reduce(x, plan)
 
     @staticmethod
     def backward(ctx, grad):
@@ -270,7 +309,7 @@ def ce_sum(h: torch.Tensor, w32: torch.Tensor, labels, valid, plan: SplitPlan):
 
     logits = torch.einsum("bsd,dv->bsv", h.float(), w32)
     n = logits.shape[-1]
-    m = _all_reduce(logits.detach().amax(dim=-1), plan, dist.ReduceOp.MAX)
+    m = all_reduce(logits.detach().amax(dim=-1), plan, dist.ReduceOp.MAX)
     se = reduce_out(torch.exp(logits - m[..., None]).sum(dim=-1), plan)
     idx = labels.clamp_min(0).long() - plan.rank * n
     inside = (idx >= 0) & (idx < n)

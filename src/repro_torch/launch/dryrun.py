@@ -165,7 +165,8 @@ def _serve_program(cfg, shape, mesh, impls, model_axis=None):
     params (split along ``model`` as the plan says), the data rank's rows
     and (decode) its cache, full to its last position, built for
     ``model_axis`` (the mesh's by default) and holding rank 0's kv heads
-    and channels where they split."""
+    (or its block of the slots, ``tensor_parallel.cache_block``) and
+    channels where they split."""
     import torch
 
     from repro_torch.distributed import tensor_parallel

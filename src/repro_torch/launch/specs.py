@@ -59,21 +59,24 @@ def prefill_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
 
 def decode_specs(cfg: ModelConfig, shape: ShapeConfig, *, model_axis: int, plan=None):
     """(cache specs, token spec, CacheSpec) for one decode step with a
-    seq_len-deep cache (a model rank's, with a split ``plan``)."""
+    seq_len-deep cache (a model rank's, with a split ``plan``: its kv heads,
+    or its block of the slots, and its channels)."""
     b, s = shape.global_batch, shape.seq_len
     spec = CacheSpec.build(cfg, s, model_axis)
     if cfg.family == "encdec":
-        cache = _encdec_cache(cfg, spec, b)
+        cache = _encdec_cache(cfg, spec, b, plan)
     else:
         cache = lm.init_cache(cfg, spec, b, device=META, plan=plan)
     return cache, _sds((b,), "int32"), spec
 
 
-def _encdec_cache(cfg: ModelConfig, spec: CacheSpec, b: int) -> dict:
-    """The layout ``encdec.prefill`` builds."""
+def _encdec_cache(cfg: ModelConfig, spec: CacheSpec, b: int, plan=None) -> dict:
+    """The layout ``encdec.prefill`` builds (a split ``plan``'s rank's kv
+    heads)."""
     hd = cfg.resolved_head_dim
-    shape = (cfg.num_layers, b, spec.kv_heads, spec.cache_len, hd)
-    cross = (cfg.num_layers, b, cfg.num_kv_heads, cfg.source_len, hd)
+    kh = encdec._kv_heads(cfg, lm._part(plan, "attention"))
+    shape = (cfg.num_layers, b, kh, spec.cache_len, hd)
+    cross = (cfg.num_layers, b, kh, cfg.source_len, hd)
     return {"pos": 0, "k": _sds(shape, cfg.compute_dtype), "v": _sds(shape, cfg.compute_dtype),
             "ck": _sds(cross, cfg.compute_dtype), "cv": _sds(cross, cfg.compute_dtype)}
 

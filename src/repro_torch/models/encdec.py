@@ -20,6 +20,17 @@ updates in place.  Attention goes through ``layers.attention`` (the
 hand-written flash kernel for CUDA inputs under 'auto'); decode attends with
 the plain ``decode_attention``, as in the JAX package, and LayerNorm is
 plain everywhere, so a decode step launches no hand-written kernel.
+
+Params that carry a split plan (``distributed/tensor_parallel.py``) hold a
+model rank's heads of every attention (encoder self-, decoder self- and
+cross-attention) and its GELU hidden units, and where the vocabulary
+splits its rows of the tied embedding.  Each attention's and MLP's output
+passes *g*, and in training its input *f*; the encoder output passes *f*
+once as the cross-attention's k/v input, since each layer's cross k/v
+projections give its gradient only the rank's part; ``bo`` and every
+LayerNorm stay whole.  The caches hold the rank's kv heads, and serving
+returns the whole vocabulary's logits.  (Serving takes no gradient, so
+prefill and decode pass no *f*.)
 """
 from __future__ import annotations
 
@@ -29,8 +40,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
-from repro_torch.models.lm import CacheSpec, _chunked_ce, _dtype, _layer, _remat
+from repro_torch.models.lm import CacheSpec, _chunked_ce, _dtype, _layer, _lookup, _part, _remat
 
 __all__ = ["init_encdec", "encode", "train_loss", "prefill", "decode_step"]
 
@@ -102,16 +114,27 @@ def _proj(x, w):
     return torch.einsum("bsd,dhk->bhsk", x, w).contiguous()
 
 
-def _mha(x, p, *, causal: bool, kv=None, impl: str = "auto"):
-    """Self-attention, or cross-attention over ``kv`` (never causal)."""
+def _out(o, p, split=None):
+    """o [B, H, S, hd] @ wo -> [B, S, D]; a split rank's partial sum
+    all-reduced."""
+    y = torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return y if split is None else tp.reduce_out(y, split)
+
+
+def _mha(x, p, *, causal: bool, kv=None, impl: str = "auto", split=None):
+    """Self-attention, or cross-attention over ``kv`` (never causal).  With
+    ``split`` the rank's heads: ``x`` passes *f* here, ``kv`` (the encoder
+    output) has passed it once for every layer (``_decoder_hidden``)."""
+    if split is not None:
+        x = tp.copy_in(x, split)
     src = x if kv is None else kv
     o = L.attention(_proj(x, p["wq"]), _proj(src, p["wk"]), _proj(src, p["wv"]),
                     causal=causal and kv is None, impl=impl)
-    return torch.einsum("bhsk,hkd->bsd", o, p["wo"])
+    return _out(o, p, split)
 
 
-def _mlp(x, p):
-    return L.gelu_mlp(x, p["wi"], p["bi"], p["wo"], p["bo"])
+def _mlp(x, p, plan=None):
+    return L.gelu_mlp(x, p["wi"], p["bi"], p["wo"], p["bo"], split=_part(plan, "mlp"))
 
 
 def _with_positions(x, cfg: ModelConfig):
@@ -130,28 +153,36 @@ def _run(body, x, n: int, cfg: ModelConfig):
 
 def encode(params, source, cfg: ModelConfig, *, attn_impl: str = "auto"):
     """source [B, T, D] -> encoder output [B, T, D] in the compute dtype."""
-    layers = params["enc_layers"]
+    layers, plan = params["enc_layers"], tp.plan_of(params)
+    split = _part(plan, "attention")
 
     def body(x, i):
         lp = _layer(layers, i)
-        x = x + _mha(_ln(x, lp["ln1"], cfg), lp["attn"], causal=False, impl=attn_impl)
-        return x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"])
+        x = x + _mha(_ln(x, lp["ln1"], cfg), lp["attn"], causal=False, impl=attn_impl,
+                     split=split)
+        return x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], plan)
 
     x = _run(body, _with_positions(source, cfg), cfg.encoder_layers, cfg)
     return _ln(x, params["enc_final"], cfg)
 
 
 def _decoder_hidden(params, tokens, enc_out, cfg: ModelConfig, *, attn_impl: str = "auto"):
-    layers = params["dec_layers"]
+    layers, plan = params["dec_layers"], tp.plan_of(params)
+    split = _part(plan, "attention")
+    if split is not None:
+        # through f once: each layer's cross k/v projections give the
+        # encoder output's gradient only the rank's heads' part
+        enc_out = tp.copy_in(enc_out, split)
 
     def body(x, i):
         lp = _layer(layers, i)
-        x = x + _mha(_ln(x, lp["ln1"], cfg), lp["self"], causal=True, impl=attn_impl)
+        x = x + _mha(_ln(x, lp["ln1"], cfg), lp["self"], causal=True, impl=attn_impl,
+                     split=split)
         x = x + _mha(_ln(x, lp["ln_x"], cfg), lp["cross"], causal=False, kv=enc_out,
-                     impl=attn_impl)
-        return x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"])
+                     impl=attn_impl, split=split)
+        return x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], plan)
 
-    x = _run(body, _with_positions(params["embed"][tokens], cfg), cfg.num_layers, cfg)
+    x = _run(body, _with_positions(_lookup(params, tokens, cfg), cfg), cfg.num_layers, cfg)
     return _ln(x, params["dec_final"], cfg)
 
 
@@ -177,8 +208,17 @@ def train_loss(params, batch, cfg: ModelConfig, *, attn_impl: str = "auto"):
 
 
 def _tied_logits(params, hidden):
-    """hidden [B, D] -> f32 logits [B, V] against the tied embedding."""
-    return hidden.float() @ params["embed"].float().T
+    """hidden [B, D] -> f32 logits [B, V] against the tied embedding (a split
+    vocabulary's gathered whole)."""
+    logits = hidden.float() @ params["embed"].float().T
+    split = _part(tp.plan_of(params), "vocab")
+    return logits if split is None else tp.gather_vocab(logits, split)
+
+
+def _kv_heads(cfg: ModelConfig, split) -> int:
+    """The kv heads a rank's caches hold: all of them, or its block (the
+    one head its query heads read where they are repeated to the axis)."""
+    return cfg.num_kv_heads if split is None else split.block(cfg.num_kv_heads)[1]
 
 
 def prefill(params, tokens, source, cfg: ModelConfig, spec: CacheSpec, *,
@@ -187,14 +227,18 @@ def prefill(params, tokens, source, cfg: ModelConfig, spec: CacheSpec, *,
     build the cache.  Returns (last-position f32 logits [B, V], cache): the
     self-attention K/V per decoder layer [L, B, K, cache_len, hd], the
     prompt's positions filled, and the cross-attention K/V computed once
-    from the encoder output [L, B, K, T, hd], in the compute dtype."""
+    from the encoder output [L, B, K, T, hd], in the compute dtype; with a
+    split plan, the rank's kv heads of both."""
     cd = _dtype(cfg.compute_dtype)
+    plan = tp.plan_of(params)
+    split = _part(plan, "attention")
     enc_out = encode(params, source, cfg, attn_impl=attn_impl)
-    x = _with_positions(params["embed"][tokens], cfg)
+    x = _with_positions(_lookup(params, tokens, cfg), cfg)
     b, s, _ = x.shape
     if s > spec.cache_len:
         raise ValueError(f"prompt {s} exceeds cache_len {spec.cache_len}")
-    nl, hd, kh, t = cfg.num_layers, cfg.resolved_head_dim, cfg.num_kv_heads, enc_out.shape[1]
+    nl, hd, t = cfg.num_layers, cfg.resolved_head_dim, enc_out.shape[1]
+    kh = _kv_heads(cfg, split)
     opts = dict(dtype=cd, device=x.device)
     cache = {"pos": s,
              "k": torch.zeros((nl, b, kh, spec.cache_len, hd), **opts),
@@ -206,16 +250,16 @@ def prefill(params, tokens, source, cfg: ModelConfig, spec: CacheSpec, *,
         h = _ln(x, lp["ln1"], cfg)
         k, v = _proj(h, lp["self"]["wk"]), _proj(h, lp["self"]["wv"])
         o = L.attention(_proj(h, lp["self"]["wq"]), k, v, causal=True, impl=attn_impl)
-        x = x + torch.einsum("bhsk,hkd->bsd", o, lp["self"]["wo"])
+        x = x + _out(o, lp["self"], split)
         cache["k"][i, :, :, :s] = k.to(cd)
         cache["v"][i, :, :, :s] = v.to(cd)
         h = _ln(x, lp["ln_x"], cfg)
         ck, cv = _proj(enc_out, lp["cross"]["wk"]), _proj(enc_out, lp["cross"]["wv"])
         o = L.attention(_proj(h, lp["cross"]["wq"]), ck, cv, causal=False, impl=attn_impl)
-        x = x + torch.einsum("bhsk,hkd->bsd", o, lp["cross"]["wo"])
+        x = x + _out(o, lp["cross"], split)
         cache["ck"][i] = ck.to(cd)
         cache["cv"][i] = cv.to(cd)
-        x = x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"])
+        x = x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], plan)
     hidden = _ln(x, params["dec_final"], cfg)
     return _tied_logits(params, hidden[:, -1]), cache
 
@@ -229,7 +273,9 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
     pos = cache["pos"]
     if pos >= spec.cache_len:
         raise ValueError(f"cache is full ({spec.cache_len} positions)")
-    x = params["embed"][tokens[:, None]].to(cd)
+    plan = tp.plan_of(params)
+    split = _part(plan, "attention")
+    x = _lookup(params, tokens[:, None], cfg)
     x = x + L.sinusoidal_positions(pos + 1, cfg.d_model, cd, x.device)[pos:][None]
     for i in range(cfg.num_layers):
         lp = _layer(params["dec_layers"], i)
@@ -238,12 +284,12 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec):
         cache["v"][i, :, :, pos:pos + 1] = _proj(h, lp["self"]["wv"]).to(cd)
         o = L.decode_attention(_proj(h, lp["self"]["wq"]), cache["k"][i], cache["v"][i],
                                pos + 1)
-        x = x + torch.einsum("bhsk,hkd->bsd", o, lp["self"]["wo"])
+        x = x + _out(o, lp["self"], split)
         h = _ln(x, lp["ln_x"], cfg)
         ck = cache["ck"][i]
         o = L.decode_attention(_proj(h, lp["cross"]["wq"]), ck, cache["cv"][i], ck.shape[2])
-        x = x + torch.einsum("bhsk,hkd->bsd", o, lp["cross"]["wo"])
-        x = x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"])
+        x = x + _out(o, lp["cross"], split)
+        x = x + _mlp(_ln(x, lp["ln2"], cfg), lp["mlp"], plan)
     hidden = _ln(x, params["dec_final"], cfg)
     cache["pos"] = pos + 1
     return _tied_logits(params, hidden[:, 0]), cache

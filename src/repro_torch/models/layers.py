@@ -20,11 +20,14 @@ VJP (cotangents in the input dtypes), the rest through autograd.
 ``constrain`` has no counterpart: on a mesh the sharded train step hands
 the model plain tensors (``distributed/fsdp.py``), so an activation is
 never a DTensor and has no layout to pin.  Where JAX's constraints split
-the SwiGLU hidden or the Mamba channels over ``model``, :func:`swiglu_mlp`
-and :func:`mamba_block` take ``split`` (a ``tensor_parallel.SplitPlan``
-whose part splits): their weights are then the model rank's block, and the
-region's input and output pass the plan's *f* and *g*.  So does
-:func:`moe_layer` where the JAX layout puts the experts over ``model``.
+the SwiGLU or GELU hidden or the Mamba channels over ``model``,
+:func:`swiglu_mlp`, :func:`gelu_mlp` and :func:`mamba_block` take
+``split`` (a ``tensor_parallel.SplitPlan`` whose part splits): their
+weights are then the model rank's block, and the region's input and output
+pass the plan's *f* and *g*.  So does :func:`moe_layer` where the JAX
+layout puts the experts over ``model``.  Where the JAX layout puts a decode
+cache's sequence over ``model``, :func:`decode_attention` takes ``split``
+and the rank's block of the slots.
 """
 from __future__ import annotations
 
@@ -247,12 +250,21 @@ def quantize_kv(x):
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *, k_scale=None,
-                     v_scale=None):
+                     v_scale=None, split=None):
     """Single-position attention against the KV cache.
 
     q [B, H, 1, hd]; caches [B, K, S_max, hd] (bf16/f32, or int8 with
     ``k_scale``/``v_scale`` [B, K, S_max]); ``cache_len`` = number of valid
     cache positions (the new token's K/V already written).
+
+    With ``split`` (a ``tensor_parallel.SplitPlan``) the caches hold the
+    model rank's equal block of the slots, global slot ``split.rank * S_max
+    + t``, and the softmax is flash-decoding's partial one: the max over
+    the valid slots all-reduced (MAX) before any exponent is taken, so a
+    rank with no valid slot adds exact zeros, then the sum of the
+    exponents, then the product with V (normalised, cast and scaled as the
+    JAX package orders it) are each all-reduced (SUM) over the model
+    ranks.
     """
     b, h, _, hd = q.shape
     kh, smax = k_cache.shape[1], k_cache.shape[2]
@@ -261,16 +273,29 @@ def decode_attention(q, k_cache, v_cache, cache_len, *, k_scale=None,
     s = torch.einsum("bkgh,bkth->bkgt", qq.float(), k_cache.to(q.dtype).float())
     if k_scale is not None:
         s = s * k_scale[:, :, None, :]
-    valid = torch.arange(smax, device=q.device) < cache_len
+    first = 0 if split is None else split.rank * smax
+    valid = torch.arange(first, first + smax, device=q.device) < cache_len
     s = torch.where(valid, s, NEG_INF)
-    m = s.amax(dim=-1, keepdim=True)
+    m = _over_ranks(s.amax(dim=-1, keepdim=True), split, "max")
     p = torch.exp(s - m)
-    p = p / torch.clamp_min(p.sum(dim=-1, keepdim=True), 1e-30)
+    p = p / torch.clamp_min(_over_ranks(p.sum(dim=-1, keepdim=True), split), 1e-30)
     if v_scale is not None:
         p = p * v_scale[:, :, None, :]
     out = torch.einsum("bkgt,bkth->bkgh", p.to(q.dtype).float(),
                        v_cache.to(q.dtype).float())
-    return out.reshape(b, h, 1, hd).to(q.dtype)
+    return _over_ranks(out, split).reshape(b, h, 1, hd).to(q.dtype)
+
+
+def _over_ranks(x, split, op: str = "sum"):
+    """``x`` all-reduced (``op``: sum or max) over ``split``'s model ranks;
+    ``x`` itself where ``split`` is None."""
+    if split is None:
+        return x
+    import torch.distributed as dist
+
+    from repro_torch.distributed import tensor_parallel as tp
+
+    return tp.all_reduce(x, split, dist.ReduceOp.MAX if op == "max" else None)
 
 
 def swiglu_mlp(x, wi_gate, wi_up, wo, split=None):
@@ -284,10 +309,17 @@ def swiglu_mlp(x, wi_gate, wi_up, wo, split=None):
     return tp.reduce_out((F.silu(x @ wi_gate) * (x @ wi_up)) @ wo, split)
 
 
-def gelu_mlp(x, wi, bi, wo, bo):
+def gelu_mlp(x, wi, bi, wo, bo, split=None):
     """The JAX package's ``jax.nn.gelu(approximate=True)``: the tanh form,
-    not torch's default erf form."""
-    return F.gelu((x @ wi) + bi, approximate="tanh") @ wo + bo
+    not torch's default erf form.  With ``split`` ``wi``, ``bi`` and ``wo``
+    hold the rank's hidden units: its partial sum is all-reduced, and
+    ``bo``, which is whole, is added once after it."""
+    if split is None:
+        return F.gelu((x @ wi) + bi, approximate="tanh") @ wo + bo
+    from repro_torch.distributed import tensor_parallel as tp
+
+    x = tp.copy_in(x, split)
+    return tp.reduce_out(F.gelu((x @ wi) + bi, approximate="tanh") @ wo, split) + bo
 
 
 # ---------------------------------------------------------------------------

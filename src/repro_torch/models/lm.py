@@ -46,6 +46,13 @@ channels, the embedding and the logits on its vocabulary rows;
 row-parallel outputs are all-reduced, the residual stream, every norm and
 the vlm family's ``patches @ mm_proj`` stay whole.  The cache then holds the rank's kv heads
 and channels, and prefill and decode return the whole vocabulary's logits.
+Where attention does not split and its kv heads do not divide the model
+axis, the cache holds the rank's block of the slots instead
+(``tensor_parallel.cache_block``): prefill writes the slots of its block
+(after a ring's roll), a decode step writes the token's K/V only on the
+rank that holds its slot, and decode attention is the partial softmax
+over the rank's slots (``layers.decode_attention(split=)``).  Prefill's
+own attention over the prompt is unchanged.
 """
 from __future__ import annotations
 
@@ -522,12 +529,15 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
     """Allocate the zeroed decode cache; ``pos`` is the next position.  The
     SSM state ``ssm_h`` is f32 [L, B, DI, N]; ``conv`` holds the last
     ``conv_k - 1`` conv inputs [L, B, conv_k-1, DI] in the compute dtype.
-    With a split ``plan``, the rank's kv heads and DI channels."""
+    With a split ``plan``, the rank's kv heads or its block of the slots
+    (``tensor_parallel.cache_block``), and its DI channels."""
     device = resolve_device(device)
     cd = dtype or _dtype(cfg.compute_dtype)
     cache = {"pos": 0}
     if cfg.family != "ssm":
-        shape = (cfg.num_layers, batch, _cache_heads(spec, plan), spec.cache_len,
+        block = tp.cache_block(plan, spec)
+        slots = spec.cache_len if block is None else block[1]
+        shape = (cfg.num_layers, batch, _cache_heads(spec, plan), slots,
                  cfg.resolved_head_dim)
         store = torch.int8 if spec.quantized else cd
         cache["k"] = torch.zeros(shape, dtype=store, device=device)
@@ -552,8 +562,17 @@ def _repeat_to(kv, k_eff: int):
     return L.repeat_kv(kv, k_eff // k) if k_eff != k else kv
 
 
-def _write_kv(cache, i: int, start: int, k, v, spec: CacheSpec, cd):
-    """Write k/v [B, K, S, hd] into layer ``i`` at positions start..start+S."""
+def _write_kv(cache, i: int, start: int, k, v, spec: CacheSpec, cd, block=None):
+    """Write k/v [B, K, S, hd] into layer ``i`` at slots start..start+S; where
+    the cache holds the slots ``block`` = (first, length) only, the part
+    that falls in it (none, on the other ranks)."""
+    if block is not None:
+        first, n = block
+        lo, hi = max(start, first), min(start + k.shape[2], first + n)
+        if lo >= hi:
+            return
+        k, v = k[:, :, lo - start:hi - start], v[:, :, lo - start:hi - start]
+        start = lo - first
     stop = start + k.shape[2]
     if spec.quantized:
         kq, ks = L.quantize_kv(k)
@@ -567,15 +586,16 @@ def _write_kv(cache, i: int, start: int, k, v, spec: CacheSpec, cd):
         cache["v"][i, :, :, start:stop] = v.to(cd)
 
 
-def _write_prefill_kv(cache, i: int, k, v, spec: CacheSpec, cd):
-    """The prompt's k/v into layer ``i``.  A ring keeps the last ``W``
-    positions, position ``p`` at index ``p % W`` so decode continues the
-    ring: the JAX package's roll of the tail by ``S % W``."""
+def _write_prefill_kv(cache, i: int, k, v, spec: CacheSpec, cd, block=None):
+    """The prompt's k/v into layer ``i`` (the slots of ``block`` only, where
+    it is not None).  A ring keeps the last ``W`` positions, position ``p``
+    at index ``p % W`` so decode continues the ring: the JAX package's roll
+    of the tail by ``S % W``."""
     s, w = k.shape[2], spec.cache_len
     if spec.ring and s > w:
         k = torch.roll(k[:, :, -w:], shifts=s % w, dims=2)
         v = torch.roll(v[:, :, -w:], shifts=s % w, dims=2)
-    _write_kv(cache, i, 0, k, v, spec, cd)
+    _write_kv(cache, i, 0, k, v, spec, cd, block)
 
 
 def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
@@ -601,6 +621,7 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
     split = _part(plan, "attention")
     cache = init_cache(cfg, spec, b, device=x.device, plan=plan)
     heads = cache["k"].shape[2] if "k" in cache else 0
+    block = tp.cache_block(plan, spec) if "k" in cache else None
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
@@ -608,7 +629,8 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
             q, k, v = _qkv(h, lp, cfg, positions, split)
             o = L.attention(q, k, v, causal=True, window=window, impl=attn_impl)
             mix = _attn_out(o, lp, split)
-            _write_prefill_kv(cache, i, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd)
+            _write_prefill_kv(cache, i, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd,
+                              block)
         if cfg.family in ("ssm", "hybrid"):
             ssm_o, h_last, conv_tail = _mamba(h, lp, cfg, plan=plan, impl=ssm_impl)
             cache["ssm_h"][i] = h_last
@@ -625,9 +647,10 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
 def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
                 norm_impl: str = "auto"):
     """One new token per sequence.  tokens [B].  Writes the token's K/V (at
-    ``pos % W`` in a ring) and the new SSM state into ``cache`` in place,
-    advances ``cache['pos']`` and returns (f32 logits [B, V], cache).  The
-    SSM branch runs the recurrent step, not the scan kernel."""
+    ``pos % W`` in a ring; on the rank that holds that slot, where the
+    cache holds a block of them) and the new SSM state into ``cache`` in
+    place, advances ``cache['pos']`` and returns (f32 logits [B, V],
+    cache).  The SSM branch runs the recurrent step, not the scan kernel."""
     cd = _dtype(cfg.compute_dtype)
     pos = cache["pos"]
     if cfg.family != "ssm" and not spec.ring and pos >= spec.cache_len:
@@ -639,16 +662,19 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
     plan = tp.plan_of(params)
     split = _part(plan, "attention")
     heads = cache["k"].shape[2] if "k" in cache else 0
+    block = tp.cache_block(plan, spec) if "k" in cache else None
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
         h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
         if cfg.family != "ssm":
             q, k, v = _qkv(h, lp, cfg, positions, split)
-            _write_kv(cache, i, write, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd)
+            _write_kv(cache, i, write, _repeat_to(k, heads), _repeat_to(v, heads), spec, cd,
+                      block)
             scales = {}
             if spec.quantized:
                 scales = {"k_scale": cache["k_scale"][i], "v_scale": cache["v_scale"][i]}
-            o = L.decode_attention(q, cache["k"][i], cache["v"][i], cache_len, **scales)
+            o = L.decode_attention(q, cache["k"][i], cache["v"][i], cache_len, **scales,
+                                   split=None if block is None else plan)
             mix = _attn_out(o, lp, split)
         if cfg.family in ("ssm", "hybrid"):
             ssm_o, h_new, conv_new = L.mamba_decode_step(

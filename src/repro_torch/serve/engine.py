@@ -36,8 +36,11 @@ class ServeEngine:
     On a ``mesh`` (a ``DeviceMesh`` with a ``model`` axis; every rank
     builds its engine from the same whole ``params``) the engine is a model
     rank's: it keeps the rank's block of each part that splits
-    (``tensor_parallel.local_view``: the moe family's experts too), its
-    cache the rank's kv heads and channels, ``model_axis`` is the mesh's, and every rank must call
+    (``tensor_parallel.local_view``: the moe family's experts and the
+    encoder-decoder's heads and GELU hidden too), its cache the rank's kv
+    heads (or, where they do not split, its block of the slots:
+    ``tensor_parallel.cache_block``) and channels, ``model_axis`` is the
+    mesh's, and every rank must call
     ``prefill`` and ``step`` alike (their all-reduces pair up).  The logits
     are the whole vocabulary's on every rank."""
 

@@ -25,8 +25,8 @@ unsharded step with ``grad_accum`` A·D, up to f32 summation order: the
 same update as A, by Eq. (3), in every family but moe, whose router aux loss
 is a function of each microbatch's tokens.
 
-Where the mesh has a ``model`` axis and ``cfg`` is a model of a family that
-splits (``tensor_parallel.split_plan``: dense, moe, vlm, ssm, hybrid), the
+Where the mesh has a ``model`` axis of more than one rank
+(``tensor_parallel.split_plan``: every family, the encoder-decoder too), the
 gathered view hands the model each split part's ``model`` blocks and the
 plan, and the model ranks compute their own heads, hidden units, experts,
 channels and vocabulary.  The loss

@@ -1,5 +1,7 @@
-"""Rank side of ``tests/test_torch_sharded_train.py`` and
-``tests/test_torch_tensor_parallel.py``: each spawned process joins a gloo
+"""Rank side of ``tests/test_torch_sharded_train.py`` and the tests of the
+split along ``model`` (``tests/test_torch_tensor_parallel.py``,
+``test_torch_expert_parallel.py``, ``test_torch_encdec_parallel.py``), and
+their shared checks: each spawned process joins a gloo
 group of 4, runs the jobs it is handed on its meshes and puts its local
 results (numpy) on a queue.  Imports torch and the port only, so a rank
 starts without JAX.
@@ -25,6 +27,34 @@ WORLD = 4
 # and the params agree within 2e-7 of their max; a gradient that is wrong by
 # a rank's share still moves them by ~lr.
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=100, eps=1e-3)
+
+
+def block_of(full, spec, coord):
+    """A rank's block of ``full`` under ``spec`` on the (2, 2) mesh."""
+    index = []
+    for dim, entry in enumerate(tuple(spec) + (None,) * (full.ndim - len(spec))):
+        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
+        i, parts = 0, 1
+        for n in names:
+            i, parts = i * 2 + coord[n], parts * 2
+        n = full.shape[dim] // parts
+        index.append(slice(i * n, (i + 1) * n))
+    return full[tuple(index)]
+
+
+def assert_shards(results, job, want, tol, names=("params", "mu", "nu")):
+    """Every rank's shard of every leaf of ``want`` ({part: {leaf: whole
+    array}}) within ``tol`` of its leaf's max |value|."""
+    for rank, out in results.items():
+        for name in names:
+            for k, full in want[name].items():
+                got = out[job][name][k].astype(np.float32)
+                ref = block_of(full, out[job]["specs"][k], out["coord"])
+                assert got.shape == ref.shape, (rank, name, k, got.shape, ref.shape)
+                scale = max(float(np.abs(full).max()), 1e-30)
+                err = float(np.abs(got - ref).max())
+                assert err <= tol * scale, \
+                    f"rank {rank} {name} {k}: {err:.3e} > {tol} * {scale:.3e}"
 
 
 def _numpy(t):
@@ -79,7 +109,7 @@ def _train(mesh, job):
 
     from repro_torch.convert import lm_params_from_jax
     from repro_torch.distributed.sharding import param_sharding
-    from repro_torch.models import lm
+    from repro_torch.models import encdec, lm
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.train.step import init_train_state, make_train_step
 
@@ -88,7 +118,8 @@ def _train(mesh, job):
     params = lm_params_from_jax(job["params"], "cpu")
     specs = {k: tuple(s.spec) for k, s in param_sharding(params, mesh).items()}
     state = init_train_state(params, opt, mesh=mesh)
-    step = make_train_step(cfg, opt, lambda p, b: lm.train_loss(lm.nested_params(p), b, cfg),
+    loss = encdec.train_loss if cfg.family == "encdec" else lm.train_loss
+    step = make_train_step(cfg, opt, lambda p, b: loss(lm.nested_params(p), b, cfg),
                            mesh=mesh)
     metrics, seen = [], {}
     undo = _recording(seen) if job.get("record") else None
@@ -113,9 +144,10 @@ def _serve(mesh, job):
     """Prefill and ``gen`` greedy decode steps through a model rank's
     ``ServeEngine(mesh=)`` (the vlm family, which the engine refuses:
     ``lm.prefill(..., patches=)`` and ``lm.decode_step`` on the rank's
-    ``local_view``): the logits of each, the cache's kv heads and SSM
-    channels, and what the model's attention, scan and router were called
-    on."""
+    ``local_view``; the encoder-decoder from the job's ``source``): the
+    logits of each, the cache's kv heads (the cross-attention's too), slots
+    and SSM channels, and what the model's attention, scan and router were
+    called on."""
     import torch
 
     from repro_torch.convert import lm_params_from_jax
@@ -139,7 +171,10 @@ def _serve(mesh, job):
             return lm.decode_step(view, cache, tokens, cfg, spec)
     else:
         eng = ServeEngine(cfg, params, max_len=job["max_len"], mesh=mesh, device="cpu")
-        prefill, step = eng.prefill, eng.step
+        step = eng.step
+
+        def prefill(prompts):
+            return eng.prefill(prompts, job.get("source"))
     seen = {}
     undo = _recording(seen)
     try:
@@ -153,6 +188,9 @@ def _serve(mesh, job):
         undo()
     return {"logits": steps, "seen": seen,
             "kv_heads": int(cache["k"].shape[2]) if "k" in cache else 0,
+            "cross_kv_heads": int(cache["ck"].shape[2]) if "ck" in cache else 0,
+            "slots": int(cache["k"].shape[3]) if "k" in cache else 0,
+            "scale_slots": int(cache["k_scale"].shape[3]) if "k_scale" in cache else 0,
             "int8": "k" in cache and cache["k"].dtype == torch.int8,
             "ssm_channels": int(cache["ssm_h"].shape[2]) if "ssm_h" in cache else 0}
 

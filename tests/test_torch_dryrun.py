@@ -21,6 +21,7 @@ from torch.distributed.tensor import Replicate
 from repro_torch.distributed import fsdp, tensor_parallel
 from repro_torch.launch import dryrun, roofline, specs
 from repro_torch.launch.mesh import make_production_mesh
+from repro_torch.models import lm
 from repro_torch.optim.adamw import AdamWConfig
 
 torch.set_num_threads(1)
@@ -134,11 +135,23 @@ def test_scaled_reckoning_equals_the_whole_program(arch, layers, accum, mesh_nam
     assert whole["kernels"]["flash_attention"]["calls"] > 0
 
 
+#: reduced configs with 16 heads, which split over the 16 model ranks
+SIXTEEN_HEADS = {"whisper-medium 16 heads": ("whisper-medium", dict(num_heads=16,
+                                                                     num_kv_heads=16))}
+
+
 @pytest.mark.parametrize("arch,shape_name", [("hymba-1.5b", "prefill_32k"),
                                              ("whisper-medium", "decode_32k"),
-                                             ("whisper-medium", "train_4k")])
+                                             ("whisper-medium", "train_4k"),
+                                             ("hymba-1.5b", "decode_32k"),
+                                             ("whisper-medium 16 heads", "decode_32k"),
+                                             ("whisper-medium 16 heads", "train_4k")])
 def test_scaled_serving_and_encdec_equal_the_whole_program(arch, shape_name):
-    base = get_config(arch).reduced()
+    """Among them reduced hymba's prefill and decode caches (4 heads, 2 kv
+    heads: its ring of 32 slots splits into 2 a rank at 16) and a whisper
+    whose heads split at 16, in both stacks and both caches."""
+    arch, over = SIXTEEN_HEADS.get(arch, (arch, {}))
+    base = get_config(arch).reduced().replace(**over)
     cfg = base.replace(num_layers=6, grad_accum=3 if shape_name == "train_4k" else 1,
                        **({"encoder_layers": 5} if base.encoder_layers else {}))
     rows = 16 * cfg.grad_accum
@@ -147,9 +160,15 @@ def test_scaled_serving_and_encdec_equal_the_whole_program(arch, shape_name):
         mesh = make_production_mesh(device="cpu")
         scaled, how = dryrun.reckon(cfg, shape, mesh, dryrun.impls("pallas"))
         whole, _ = dryrun.reckon(cfg, shape, mesh, dryrun.impls("pallas"), scale=False)
+        plan = tensor_parallel.split_plan(cfg, specs.state_specs(cfg, AdamWConfig())["params"],
+                                          mesh)
     scaled.pop("ops"), whole.pop("ops")
     assert scaled == whole
     assert len(how["knobs"]) == (2 if base.encoder_layers else 1)
+    assert plan.attention == bool(over)
+    if base.family != "encdec":   # which keeps a cache of unsplit heads whole
+        spec = lm.CacheSpec.build(cfg, shape.seq_len, 16)
+        assert tensor_parallel.cache_block(plan, spec) is not None   # prefill's too
 
 
 def _gather_bytes(shape, placements, mesh, itemsize):

@@ -151,32 +151,6 @@ def run(tmp_path_factory):
     return results
 
 
-def _block(full, spec, coord):
-    """A rank's block of ``full`` under ``spec`` on the (2, 2) mesh."""
-    index = []
-    for dim, entry in enumerate(tuple(spec) + (None,) * (full.ndim - len(spec))):
-        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
-        i, parts = 0, 1
-        for n in names:
-            i, parts = i * 2 + coord[n], parts * 2
-        n = full.shape[dim] // parts
-        index.append(slice(i * n, (i + 1) * n))
-    return full[tuple(index)]
-
-
-def _assert_shards(results, job, want, tol, names=("params", "mu", "nu")):
-    for rank, out in results.items():
-        for name in names:
-            for k, full in want[name].items():
-                got = out[job][name][k].astype(np.float32)
-                ref = _block(full, out[job]["specs"][k], out["coord"])
-                assert got.shape == ref.shape, (rank, name, k, got.shape, ref.shape)
-                scale = max(float(np.abs(full).max()), 1e-30)
-                err = float(np.abs(got - ref).max())
-                assert err <= tol * scale, \
-                    f"rank {rank} {name} {k}: {err:.3e} > {tol} * {scale:.3e}"
-
-
 _PORT = {}
 
 
@@ -248,7 +222,7 @@ def test_split_step_matches_the_unsharded_step(run, name):
             assert g["tokens"] == ref["tokens"]
             assert abs(g["grad_norm"] - ref["grad_norm"]) <= 1e-5 * ref["grad_norm"]
             assert ref["grad_norm"] > CLIP
-    _assert_shards(run, f"train {name}", want, TOL_STEP)
+    ranks.assert_shards(run, f"train {name}", want, TOL_STEP)
 
 
 def _flat_np(tree, prefix=""):
@@ -276,7 +250,7 @@ def test_split_step_matches_the_jax_step(run, name):
         np.testing.assert_allclose([m["loss"] for m in out[f"train {name}"]["metrics"]],
                                    losses, rtol=1e-5)
     want = {"params": _flat_np(jax.tree.map(np.asarray, js["params"]))}
-    _assert_shards(run, f"train {name}", want, TOL_JAX, names=("params",))
+    ranks.assert_shards(run, f"train {name}", want, TOL_JAX, names=("params",))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))

@@ -16,7 +16,19 @@ untied.  Serving adds qwen2 with 1 kv head, repeated to 2 in the cache
 (``CacheSpec``'s repeat case: each rank computes and caches the kv head
 its query heads read), and qwen2-0.5b and hymba-1.5b at an int8 and an f32
 cache.  The moe and vlm families' split has its own file,
-``tests/test_torch_expert_parallel.py``.
+``tests/test_torch_expert_parallel.py``, the encoder-decoder's
+``tests/test_torch_encdec_parallel.py``.
+
+Flash-decoding: where attention does not split and the kv heads do not
+divide the axis, each rank's cache holds its half of the slots and decode
+attention all-reduces the partial softmax.  Served so: the hymba with 3
+heads (its ring of 32 slots, 16 a rank, wrapped by the prompt of 40) at
+the compute dtype's and an int8 cache; a qwen2-0.5b with 3 heads and 1 kv head
+(a cache of 46 slots, 23 a rank), from the prompt of 40 and from one of 8,
+shorter than a rank's block, so that rank 1 holds no valid slot in any
+step; the same qwen2 with 45 slots, which do not divide 2, so its cache
+stays whole; and a qwen2 where nothing but the cache splits (3 heads, an
+MLP of 129, a vocabulary of 257), whose plan exists for the model group.
 
 Tolerances.  Against the port's unsharded step at grad_accum A·D (the
 sharded step's reference, ``tests/test_torch_sharded_train.py``): the loss
@@ -62,6 +74,7 @@ torch.set_num_threads(1)
 pytestmark = pytest.mark.dist
 
 DEGRADED = dict(num_heads=3, num_kv_heads=1, vocab_size=257)
+FLASH = dict(num_heads=3, num_kv_heads=1)
 CONFIGS = {"qwen2-0.5b": ("qwen2-0.5b", {}), "hymba-1.5b": ("hymba-1.5b", {}),
            "falcon-mamba-7b": ("falcon-mamba-7b", {}),
            "hymba-1.5b 3 heads": ("hymba-1.5b", DEGRADED),
@@ -75,24 +88,42 @@ SERVE = {**{k: CONFIGS[k] for k in list(CONFIGS)[:4]},
          "qwen2-0.5b int8 cache": ("qwen2-0.5b", {"kv_cache_dtype": "int8"}),
          "qwen2-0.5b f32 cache": ("qwen2-0.5b", {"kv_cache_dtype": "float32"}),
          "hymba-1.5b int8 cache": ("hymba-1.5b", {"kv_cache_dtype": "int8"}),
-         "hymba-1.5b f32 cache": ("hymba-1.5b", {"kv_cache_dtype": "float32"})}
+         "hymba-1.5b f32 cache": ("hymba-1.5b", {"kv_cache_dtype": "float32"}),
+         "hymba-1.5b 3 heads int8 cache": ("hymba-1.5b", {**DEGRADED, "kv_cache_dtype": "int8"}),
+         "qwen2-0.5b 3 heads": ("qwen2-0.5b", FLASH),
+         "qwen2-0.5b 3 heads short prompt": ("qwen2-0.5b", FLASH),
+         "qwen2-0.5b 3 heads odd cache": ("qwen2-0.5b", FLASH),
+         "qwen2-0.5b only the cache splits": ("qwen2-0.5b", {**DEGRADED, "d_ff": 129})}
 #: (attention, mlp, mamba, vocab) that split at (data 2, model 2)
 SPLITS = {"qwen2-0.5b": (True, True, False, True), "hymba-1.5b": (True, True, True, True),
           "falcon-mamba-7b": (False, False, True, True),
-          "hymba-1.5b 3 heads": (False, True, True, False)}
+          "hymba-1.5b 3 heads": (False, True, True, False),
+          "hymba-1.5b 3 heads int8 cache": (False, True, True, False),
+          "qwen2-0.5b 3 heads": (False, True, False, True),
+          "qwen2-0.5b only the cache splits": (False, False, False, False)}
 SPLITS.update({name: SPLITS[arch] for name, (arch, over) in {**CONFIGS, **SERVE}.items()
                if name not in SPLITS and "num_kv_heads" not in over})
+SPLITS["qwen2-0.5b 1 kv head"] = SPLITS["qwen2-0.5b"]
+SPLITS["qwen2-0.5b 3 heads short prompt"] = SPLITS["qwen2-0.5b 3 heads odd cache"] = \
+    SPLITS["qwen2-0.5b 3 heads"]
 ACCUM, DATA = 2, 2
 B, S = 8, 32
 WEIGHTS = np.array([1, 1, 1, 0, 1, 1, 0, 0], np.float32)
 CLIP = 0.25                 # below every step's gradient norm: clipping is on
 PROMPT, GEN = 40, 4         # 40 > hymba's reduced window of 32: its ring wraps
+#: (prompt, max_len) of the serving cases that differ from (PROMPT, PROMPT + GEN + 1)
+SERVE_SHAPE = {"qwen2-0.5b 3 heads": (PROMPT, 46), "qwen2-0.5b 3 heads short prompt": (8, 46),
+               "qwen2-0.5b only the cache splits": (PROMPT, 46)}
+#: the cache slots a rank holds where the sequence splits (the rest: all)
+SLOTS = {"hymba-1.5b 3 heads": 16, "hymba-1.5b 3 heads int8 cache": 16,
+         "qwen2-0.5b 3 heads": 23, "qwen2-0.5b 3 heads short prompt": 23,
+         "qwen2-0.5b only the cache splits": 23}
 SPAWN_TIMEOUT_S = 240
 TOL_STEP, TOL_JAX, TOL_SERVE = 1e-4, 1e-4, 1e-5
 #: hymba's int8 cache: the unsharded engine's own logits move by up to
 #: 1.21e-4 of their max when every weight moves by 1e-7 relative (int8
 #: rounding of K/V rows flips), at an f32 cache by at most 4.7e-6
-SERVE_TOL = {"hymba-1.5b int8 cache": 1.2e-4}
+SERVE_TOL = {"hymba-1.5b int8 cache": 1.2e-4, "hymba-1.5b 3 heads int8 cache": 1.2e-4}
 
 
 def _cfgs(name):
@@ -120,6 +151,10 @@ BATCHES = [_batch(30), _batch(31)]
 PROMPTS = np.random.default_rng(32).integers(0, 256, (2, PROMPT))
 
 
+def _serve_shape(name):
+    return SERVE_SHAPE.get(name, (PROMPT, PROMPT + GEN + 1))
+
+
 @pytest.fixture(scope="module")
 def run(tmp_path_factory):
     """Spawn the 4 ranks once: {rank: results}."""
@@ -130,9 +165,10 @@ def run(tmp_path_factory):
                                      params=_jax_tree(name), batches=BATCHES,
                                      opt={"clip_norm": CLIP}, record=True)
     for name, (arch, over) in SERVE.items():
+        prompt, max_len = _serve_shape(name)
         jobs[f"serve {name}"] = dict(kind="serve", arch=arch, overrides=over,
-                                     params=_jax_tree(name), prompts=PROMPTS, gen=GEN,
-                                     max_len=PROMPT + GEN + 1)
+                                     params=_jax_tree(name), prompts=PROMPTS[:, :prompt],
+                                     gen=GEN, max_len=max_len)
     ctx = mp.get_context("spawn")
     q = ctx.Queue()
     procs = [ctx.Process(target=ranks.run_rank, args=(r, str(tmp / "pg"), jobs, q))
@@ -157,32 +193,6 @@ def run(tmp_path_factory):
                 p.join(timeout=10)
     assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
     return results
-
-
-def _block(full, spec, coord):
-    """A rank's block of ``full`` under ``spec`` on the (2, 2) mesh."""
-    index = []
-    for dim, entry in enumerate(tuple(spec) + (None,) * (full.ndim - len(spec))):
-        names = () if entry is None else (entry if isinstance(entry, tuple) else (entry,))
-        i, parts = 0, 1
-        for n in names:
-            i, parts = i * 2 + coord[n], parts * 2
-        n = full.shape[dim] // parts
-        index.append(slice(i * n, (i + 1) * n))
-    return full[tuple(index)]
-
-
-def _assert_shards(results, job, want, tol, names=("params", "mu", "nu")):
-    for rank, out in results.items():
-        for name in names:
-            for k, full in want[name].items():
-                got = out[job][name][k].astype(np.float32)
-                ref = _block(full, out[job]["specs"][k], out["coord"])
-                assert got.shape == ref.shape, (rank, name, k, got.shape, ref.shape)
-                scale = max(float(np.abs(full).max()), 1e-30)
-                err = float(np.abs(got - ref).max())
-                assert err <= tol * scale, \
-                    f"rank {rank} {name} {k}: {err:.3e} > {tol} * {scale:.3e}"
 
 
 def _port_steps(name):
@@ -222,7 +232,7 @@ def test_split_step_matches_the_unsharded_step(run, name):
             # the global norm of split and replicated leaves, and clipping on
             assert abs(g["grad_norm"] - ref["grad_norm"]) <= 1e-5 * ref["grad_norm"]
             assert ref["grad_norm"] > CLIP
-    _assert_shards(run, f"train {name}", want, TOL_STEP)
+    ranks.assert_shards(run, f"train {name}", want, TOL_STEP)
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -239,7 +249,7 @@ def test_split_step_matches_the_jax_step(run, name):
         np.testing.assert_allclose([m["loss"] for m in out[f"train {name}"]["metrics"]],
                                    losses, rtol=1e-5)
     want = {"params": _flat_np(jax.tree.map(np.asarray, js["params"]))}
-    _assert_shards(run, f"train {name}", want, TOL_JAX, names=("params",))
+    ranks.assert_shards(run, f"train {name}", want, TOL_JAX, names=("params",))
 
 
 @pytest.mark.parametrize("name", list(CONFIGS))
@@ -281,9 +291,10 @@ def _unsharded_serve(name, tokens):
     """The unsharded engine's prefill logits and the logits of decode steps
     fed ``tokens`` (the split run's choices)."""
     cfg = _cfgs(name)[0]
+    prompt, max_len = _serve_shape(name)
     params = lm.nested_params(convert.lm_params_from_jax(_jax_tree(name), "cpu"))
-    eng = ServeEngine(cfg, params, max_len=PROMPT + GEN + 1, device="cpu")
-    logits, cache = eng.prefill(PROMPTS)
+    eng = ServeEngine(cfg, params, max_len=max_len, device="cpu")
+    logits, cache = eng.prefill(PROMPTS[:, :prompt])
     out = [logits.numpy()]
     for tok in tokens:
         logits, cache = eng.step(cache, torch.from_numpy(tok))
@@ -302,6 +313,7 @@ def test_split_serving_matches_the_unsharded_engine(run, name):
         assert len(got) == GEN + 1
         for i, (g, w) in enumerate(zip(got, want)):
             assert g.shape == w.shape == (PROMPTS.shape[0], cfg.vocab_size)
+            assert np.isfinite(g).all(), (rank, i)
             err = float(np.abs(g - w).max())
             assert err <= SERVE_TOL.get(name, TOL_SERVE) * float(np.abs(w).max()), \
                 (rank, i, err)
@@ -310,17 +322,22 @@ def test_split_serving_matches_the_unsharded_engine(run, name):
 @pytest.mark.parametrize("name", list(SERVE))
 def test_split_cache_holds_the_ranks_heads_and_channels(run, name):
     """The cache holds each rank's kv heads (the repeated head in the
-    repeat case; all of them where attention does not split) and its DI
+    repeat case; all of them where attention does not split), its block of
+    the slots where the sequence splits (the int8 scales too), and its DI
     channels."""
     cfg = _cfgs(name)[0]
-    attention = SPLITS.get(name, (True, True, False, True))[0]
-    mamba = SPLITS.get(name, (True, True, False, True))[2]
+    attention, _, mamba, _ = SPLITS[name]
+    for out in run.values():
+        out = out[f"serve {name}"]
+        if cfg.kv_cache_dtype == "int8":
+            assert out["int8"]
+        if cfg.family != "ssm":
+            spec = lm.CacheSpec.build(cfg, _serve_shape(name)[1], 2)
+            assert out["kv_heads"] == (spec.kv_heads // 2 if attention else spec.kv_heads)
+            assert out["slots"] == SLOTS.get(name, spec.cache_len)
+            assert out["scale_slots"] == (out["slots"] if spec.quantized else 0)
+            assert out["slots"] * (2 if name in SLOTS else 1) == spec.cache_len
     out = run[0][f"serve {name}"]
-    if cfg.kv_cache_dtype == "int8":
-        assert out["int8"]
-    if cfg.family != "ssm":
-        spec = lm.CacheSpec.build(cfg, PROMPT + GEN + 1, 2)
-        assert out["kv_heads"] == (spec.kv_heads // 2 if attention else spec.kv_heads)
     if cfg.family in ("ssm", "hybrid"):
         assert out["ssm_channels"] == cfg.ssm_d_inner // (2 if mamba else 1)
     if name == "qwen2-0.5b 1 kv head":
@@ -337,7 +354,8 @@ def test_whole_gathers_a_dtensor_from_every_ranks_shard(run, name):
         full = run[0][job]["whole"][k]
         for out in run.values():
             assert np.array_equal(out[job]["whole"][k], full), k
-            assert np.array_equal(_block(full, spec, out["coord"]), out[job]["params"][k]), k
+            assert np.array_equal(ranks.block_of(full, spec, out["coord"]),
+                                  out[job]["params"][k]), k
 
 
 # -- the plan, on fake meshes -------------------------------------------------------
@@ -404,14 +422,68 @@ def test_plan_splits_where_the_chosen_spec_puts_model_on_the_split_dim(arch, sha
     assert "layers.router" not in plan.leaves and "mm_proj" not in plan.leaves
 
 
-@pytest.mark.parametrize("arch", ["whisper-medium"])
-def test_other_families_keep_the_gathered_path(arch):
-    cfg = get_config(arch)
-    init = lm.init_lm
-    if cfg.family == "encdec":
-        from repro_torch.models.encdec import init_encdec as init
-    params = lm.flat_params(init(cfg, device="meta"))
-    assert tp.split_plan(cfg, params, _mesh((16, 16))) is None
+def _encdec_plan(cfg, mesh):
+    from repro_torch.models.encdec import init_encdec
+
+    return tp.split_plan(cfg, lm.flat_params(init_encdec(cfg, device="meta")), mesh)
+
+
+@pytest.mark.parametrize("shape", [(16, 16), (1, 2)])
+def test_encdec_plan_splits_heads_and_hidden_not_its_vocabulary(shape):
+    """whisper-medium: 16 heads and a GELU hidden of 4096 split at 2 and
+    16, its vocabulary of 51865 at neither; every attention (encoder self,
+    decoder self and cross) and both MLP stacks are members, stored split
+    (``LOCAL``); ``bo`` and the LayerNorms are not."""
+    cfg = get_config("whisper-medium")
+    plan = _encdec_plan(cfg, _mesh(shape))
+    assert (plan.attention, plan.mlp, plan.mamba, plan.vocab, plan.experts) == \
+        (True, True, False, False, False)
+    attn = {f"{s}.{n}" for s in ("enc_layers.attn", "dec_layers.self", "dec_layers.cross")
+            for n in ("wq", "wk", "wv", "wo")}
+    mlp = {f"{s}.{n}" for s in ("enc_layers.mlp", "dec_layers.mlp") for n in ("wi", "bi", "wo")}
+    assert set(plan.leaves) == attn | mlp
+    assert all(mode == tp.LOCAL for _, mode in plan.leaves.values())
+    assert plan.leaves["dec_layers.cross.wq"] == (2, tp.LOCAL)
+    assert plan.leaves["dec_layers.self.wo"] == plan.leaves["enc_layers.mlp.wo"] == (1, tp.LOCAL)
+    assert plan.leaves["enc_layers.mlp.wi"] == (2, tp.LOCAL)
+    assert plan.leaves["dec_layers.mlp.bi"] == (1, tp.LOCAL)
+
+
+@pytest.mark.parametrize("vocab,split", [(256, True), (257, False)])
+def test_reduced_encdec_plan_splits_its_vocabulary_where_it_divides(vocab, split):
+    """Reduced whisper (vocabulary 256) splits its tied embedding at 2, as
+    the full size does not; one of 257 stays whole, as at full size."""
+    cfg = get_config("whisper-medium").reduced().replace(vocab_size=vocab)
+    plan = _encdec_plan(cfg, _mesh((2, 2)))
+    assert plan.attention and plan.mlp and plan.vocab == split
+    assert ("embed" in plan.leaves) == split
+
+
+def test_a_plan_without_a_split_part_still_carries_the_model_group():
+    """Nothing splits (3 heads, an MLP of 129, a vocabulary of 257), yet the
+    plan exists: the cache's sequence split needs its group."""
+    cfg = get_config("qwen2-0.5b").reduced().replace(num_heads=3, num_kv_heads=1,
+                                                     vocab_size=257, d_ff=129)
+    plan = _plan(cfg, _mesh((2, 2), rank=1))
+    assert plan is not None and plan.group == "group model" and not plan.leaves
+    assert not any((plan.attention, plan.mlp, plan.mamba, plan.vocab, plan.experts))
+    assert tp.cache_block(plan, lm.CacheSpec.build(cfg, 46, 2)) == (23, 23)
+
+
+@pytest.mark.parametrize("arch,over,shape,max_len,rank,want", [
+    ("hymba-1.5b", {}, (1, 2), 1600, 1, (512, 512)),   # 5 kv heads: its ring of 1024
+    ("hymba-1.5b", {}, (16, 16), 32768, 3, (192, 64)),
+    ("qwen2-0.5b", {}, (16, 16), 32768, 15, (30720, 2048)),  # 14 heads: no repeat
+    ("qwen2-0.5b", {}, (1, 2), 32768, 1, None),        # heads split
+    ("minitron-8b", {}, (16, 16), 4096, 0, None),      # 8 kv heads repeated to 16
+    ("hymba-1.5b", {}, (1, 2), 999, 0, None),          # 999 slots do not divide 2
+    ("falcon-mamba-7b", {}, (1, 2), 4096, 0, None)])   # no kv cache
+def test_cache_block_is_the_ranks_slots_where_the_heads_do_not_split(arch, over, shape,
+                                                                     max_len, rank, want):
+    cfg = get_config(arch).replace(**over)
+    plan = _plan(cfg, _mesh(shape, rank=rank))
+    assert tp.cache_block(plan, lm.CacheSpec.build(cfg, max_len, shape[1])) == want
+    assert tp.cache_block(None, lm.CacheSpec.build(cfg, max_len, shape[1])) is None
 
 
 @pytest.mark.parametrize("shape", [(2, 1), (1,)])
@@ -462,3 +534,22 @@ def test_tp_split_dim_names_a_dim_for_every_rule():
     for leaf in ("layers.we_gate", "layers.we_up", "layers.we_down", "layers.ws_down"):
         assert tsh.tp_split_dim(leaf) == 1, leaf
     assert tsh.tp_split_dim("layers.ws_gate") == tsh.tp_split_dim("layers.ws_up") == 2
+
+
+def test_tp_split_dim_names_the_encdec_leaves():
+    """The dense rules name the encoder-decoder's split dims: heads of
+    q/k/v [L, d, h, hd] and of wo [L, h, hd, d], the hidden of the MLP's wi
+    [L, d, f], bi [L, f] and wo [L, f, d] (the ``wo$`` rule: ``model`` on
+    dim 1); none of ``bo`` or a LayerNorm."""
+    for stack in ("enc_layers.attn", "dec_layers.self", "dec_layers.cross"):
+        for leaf in ("wq", "wk", "wv"):
+            assert tsh.tp_split_dim(f"{stack}.{leaf}") == 2, (stack, leaf)
+        assert tsh.tp_split_dim(f"{stack}.wo") == 1, stack
+    for stack in ("enc_layers.mlp", "dec_layers.mlp"):
+        assert tsh.tp_split_dim(f"{stack}.wi") == 2
+        assert tsh.tp_split_dim(f"{stack}.bi") == tsh.tp_split_dim(f"{stack}.wo") == 1
+        assert tsh.tp_split_dim(f"{stack}.bo") is None
+    for leaf in ("enc_layers.ln1.scale", "dec_layers.ln_x.bias", "enc_final.scale",
+                 "dec_final.bias"):
+        assert tsh.tp_split_dim(leaf) is None, leaf
+    assert tsh.tp_split_dim("embed") == 0
