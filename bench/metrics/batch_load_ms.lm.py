@@ -1,0 +1,12 @@
+"""Mean time a window step takes to assemble its padded batch and stage it to the card (train.make_batch: to_global and the pinned copy)."""
+from bench import readers
+
+LAYER = "trainer"
+UNIT = "ms"
+SOURCE = "program_span"
+MOVES = "train_tokens_per_s"
+BETTER = "lower"
+
+
+def read(r):
+    return readers.mean_ms(r, "load_s")

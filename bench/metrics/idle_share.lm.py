@@ -1,0 +1,12 @@
+"""Share of the traced window in which no operation ran on the device (the union of device intervals)."""
+from bench import readers
+
+LAYER = "device"
+UNIT = "ratio"
+SOURCE = "device_trace"
+MOVES = "train_tokens_per_s"
+BETTER = "lower"
+
+
+def read(r):
+    return readers.idle_share(r)

@@ -1,0 +1,57 @@
+"""The one generator of the traffic mixes: a mix is ``<name>.json`` beside
+this file, a set of parameters that this module reads.
+
+Keys of a mix: ``loader`` (the port's loading strategy), ``backend`` (its
+store layout), ``num_samples`` (rows in the store), ``num_nodes`` and
+``local_batch`` (SOLAR's nodes and each node's batch), ``buffer_size``
+(samples a node buffers), ``num_workers`` and ``prefetch_depth`` (the
+loader's read-ahead threads and steps), ``num_epochs`` (the plan's length),
+``pfs_latency_s`` (the store's sleep per physical read, emulating a
+parallel file system's call latency), ``seq_len`` (LM rows: tokens a row
+trains on), ``warmup_steps`` (steps trained before the window, the checked
+ones among them), ``checked_steps`` (the first steps the reference
+follows), ``trace_steps`` (steps under the profiler in a ``--trace 1``
+run).
+
+The store's rows come from the seed: a surrogate's samples are standard
+normal floats of its input shape, an LM's rows ``seq_len + 1`` token ids
+drawn uniformly from its vocabulary, made on the device in one draw."""
+from __future__ import annotations
+
+import json
+from pathlib import Path
+
+import torch
+
+from bench.traffic.weights import generator
+
+__all__ = ["load", "data", "KEYS"]
+
+HERE = Path(__file__).resolve().parent
+
+KEYS = {"loader", "backend", "num_samples", "num_nodes", "local_batch", "buffer_size",
+        "num_workers", "prefetch_depth", "num_epochs", "pfs_latency_s", "warmup_steps",
+        "checked_steps", "trace_steps"}
+
+
+def load(name: str) -> dict:
+    """The parameters of the mix ``name``."""
+    mix = json.loads((HERE / f"{name}.json").read_text())
+    missing = KEYS - set(mix)
+    if missing:
+        raise ValueError(f"traffic {name!r} lacks {sorted(missing)}")
+    return mix
+
+
+def data(config: dict, mix: dict, seed: int, device) -> torch.Tensor:
+    """Every row of the store, on ``device``: surrogate samples
+    ``[N, *input_shape]`` float32, or LM rows ``[N, seq_len + 1]`` int32."""
+    gen = generator(seed, 1, device)
+    n = mix["num_samples"]
+    if config["kind"] == "surrogate":
+        return torch.randn((n, *config["model"]["input_shape"]), generator=gen,
+                           device=device, dtype=torch.float32)
+    if config["kind"] == "lm":
+        return torch.randint(0, config["model"]["vocab_size"], (n, mix["seq_len"] + 1),
+                             generator=gen, device=device, dtype=torch.int64).to(torch.int32)
+    raise ValueError(f"no data for kind {config['kind']!r}")
