@@ -8,7 +8,7 @@ laid out on disk.  This module pins that boundary down:
     layout hints ``chunk_samples`` and ``num_shards``) shared by every
     backend and by dataset creation.
   * :class:`StorageBackend` — the runtime protocol every backend satisfies:
-    ranged / coalesced / scattered reads, access-trace counters, a
+    ranged / coalesced / scattered reads, read counters, a
     ``simulated_latency_s`` PFS-emulation knob, and an open/close lifecycle
     safe under the fd-pool parallel reads of the prefetch executor.
   * :class:`BaseBackend` — the shared engine.  Subclasses implement one
@@ -97,8 +97,6 @@ class StorageBackend(Protocol):
     sample_bytes: int
     #: per-physical-read sleep emulating remote-PFS call latency.
     simulated_latency_s: float
-    #: access trace: (sample_offset, run_length) per physical read.
-    trace: list
     bytes_read: int
     read_calls: int
 
@@ -182,8 +180,8 @@ class BaseBackend(CoalescingReadsMixin):
 
     Subclasses implement :meth:`_read_span` (one physical contiguous read of
     samples ``[start, stop)``) and optionally :meth:`_close_resources`.
-    Everything else — bounds checks, per-read latency injection, the access
-    trace, and both coalescing read paths — is inherited.
+    Everything else — bounds checks, per-read latency injection, the read
+    counters, and both coalescing read paths — is inherited.
     """
 
     backend_name = "base"
@@ -210,9 +208,6 @@ class BaseBackend(CoalescingReadsMixin):
         self.simulated_latency_s = float(simulated_latency_s)
         self._closed = False
         self._stats_lock = threading.Lock()
-        #: access trace: list of (sample_offset, run_length) — consumed by
-        #: the cost model and the access-pattern benchmark; cheap to record.
-        self.trace: list[tuple[int, int]] = []
         self.bytes_read = 0
         self.read_calls = 0
 
@@ -229,7 +224,6 @@ class BaseBackend(CoalescingReadsMixin):
 
     def reset_counters(self) -> None:
         with self._stats_lock:
-            self.trace.clear()
             self.bytes_read = 0
             self.read_calls = 0
 
@@ -299,7 +293,6 @@ class BaseBackend(CoalescingReadsMixin):
         tr.rec(obs_trace.CHUNK_READ, t0, a=stop - start,
                b=(stop - start) * self.sample_bytes)
         with self._stats_lock:
-            self.trace.append((start, stop - start))
             self.bytes_read += (stop - start) * self.sample_bytes
             self.read_calls += 1
         return arr

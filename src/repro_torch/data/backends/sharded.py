@@ -97,13 +97,6 @@ class ShardedBackend(CoalescingReadsMixin):
     def read_calls(self) -> int:
         return sum(s.read_calls for s in self.shards)
 
-    @property
-    def trace(self) -> list[tuple[int, int]]:
-        out: list[tuple[int, int]] = []
-        for s, base in zip(self.shards, self._starts.tolist()):
-            out.extend((base + off, n) for off, n in s.trace)
-        return out
-
     def reset_counters(self) -> None:
         for s in self.shards:
             s.reset_counters()

@@ -40,6 +40,7 @@ import numpy as np
 from repro_torch.core.costmodel import PeerCostModel, PFSCostModel
 from repro_torch.core.plan import Schedule
 from repro_torch.data.backends.base import StorageBackend
+from repro_torch.obs import trace as obs_trace
 
 __all__ = [
     "StepBatch",
@@ -66,18 +67,24 @@ class StepBatch:
 
         Returns ``(data, weights)`` with shapes ``[N*capacity, ...]`` and
         ``[N*capacity]``; dummy rows have weight 0 so the masked loss makes
-        gradients identical to the unpadded batch (DESIGN.md §3).
+        gradients identical to the unpadded batch (DESIGN.md §3).  Traced as
+        ``batch.to_global``: a = rows computed, b = rows of weight 0.
         """
         assert self.node_data is not None
+        tr = obs_trace.get()
+        t0 = tr.t()
         n = len(self.node_ids)
         shape = self.node_data[0].shape[1:]
         dtype = self.node_data[0].dtype
         data = np.zeros((n, capacity) + shape, dtype)
         weights = np.zeros((n, capacity), np.float32)
+        real = 0
         for i, arr in enumerate(self.node_data):
             k = min(arr.shape[0], capacity)
             data[i, :k] = arr[:k]
             weights[i, :k] = 1.0
+            real += k
+        tr.rec(obs_trace.BATCH_TO_GLOBAL, t0, a=n * capacity, b=n * capacity - real)
         return data.reshape((n * capacity,) + shape), weights.reshape(-1)
 
 

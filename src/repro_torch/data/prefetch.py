@@ -34,7 +34,14 @@ buffering).  In schedule mode up to ``depth`` *assembled* batches queue for
 the consumer while up to ``depth`` further steps of raw chunk reads are in
 flight, so peak read-ahead is ~``2 * depth`` steps and host memory is
 proportional to ``2 * depth * global_batch`` — size ``depth`` against host
-RAM accordingly.  Shutdown is
+RAM accordingly.
+
+Traced (:mod:`repro_torch.obs.trace`): the consumer's ``prefetch.qwait`` (a
+= assembled batches waiting in the queue at the get) and, on the pipeline
+thread, each step's ``prefetch.assemble`` (peer fetches, the wait for its
+chunk reads, ``execute_step``).  Work done ahead is stamped with the step
+it serves: the pipeline thread's spans and the chunk reads its pool issues
+carry ``first_step`` plus the batch's place in the iteration.  Shutdown is
 cooperative: :meth:`close` (also triggered by abandoning the iterator or the
 context manager) cancels the pipeline, drains the queue, joins the thread and
 tears down the pool — no leaked threads, ever.  Every iteration owns its run
@@ -55,6 +62,12 @@ __all__ = ["PrefetchExecutor", "WindowReadAhead"]
 _SENTINEL = object()
 
 
+def _read_serving(step: int, read, ranges):
+    """``read(ranges)`` on a pool thread, its spans stamped with ``step``."""
+    obs_trace.get().set_thread_step(step)
+    return read(ranges)
+
+
 class WindowReadAhead:
     """Chunk-read pipelining for the distributed rank loop (DESIGN.md §11).
 
@@ -73,11 +86,13 @@ class WindowReadAhead:
             max_workers=max(int(num_workers), 1), thread_name_prefix="solar-io"
         )
 
-    def submit(self, store, sp) -> list:
-        """Issue one step-plan's per-node chunk reads; returns futures."""
+    def submit(self, store, sp, step: int) -> list:
+        """Issue one step-plan's per-node chunk reads, traced as serving
+        ``step``; returns futures."""
         return [
             self._pool.submit(
-                store.read_ranges, [(c.start, c.stop) for c in npn.chunks]
+                _read_serving, step, store.read_ranges,
+                [(c.start, c.stop) for c in npn.chunks],
             )
             for npn in sp.nodes
         ]
@@ -107,7 +122,8 @@ class _Failure:
 class _Run:
     """State owned by one iteration of the executor."""
 
-    def __init__(self, depth: int, num_workers: int | None):
+    def __init__(self, depth: int, num_workers: int | None, first_step: int):
+        self.first_step = first_step
         self.cancel = threading.Event()
         self.q: queue.Queue = queue.Queue(maxsize=depth)
         self.pool = (
@@ -141,6 +157,9 @@ class PrefetchExecutor:
         self.mode = mode
         self.depth = max(int(depth), 1)
         self.num_workers = max(int(num_workers), 1)
+        #: the step the next iteration's first batch serves (its trace
+        #: stamp); the trainer sets it to its own step counter
+        self.first_step = 0
         self._run: _Run | None = None
 
     # -- loader proxy ---------------------------------------------------------
@@ -198,6 +217,7 @@ class PrefetchExecutor:
             self.num_workers
             if self.mode == "schedule" and self.loader.collect_data
             else None,
+            self.first_step,
         )
         run.thread = threading.Thread(
             target=self._produce, args=(run,), name="solar-pipeline", daemon=True
@@ -207,12 +227,13 @@ class PrefetchExecutor:
         return self._consume(run)
 
     def _consume(self, run: _Run):
-        tr = obs_trace.get()
         try:
             while True:
+                tr = obs_trace.get()
                 t0 = tr.t()
+                waiting = run.q.qsize() if tr.enabled else 0
                 item = run.q.get()
-                tr.rec(obs_trace.PREFETCH_QWAIT, t0)
+                tr.rec(obs_trace.PREFETCH_QWAIT, t0, a=waiting)
                 if item is _SENTINEL:
                     break
                 if isinstance(item, _Failure):
@@ -261,7 +282,8 @@ class PrefetchExecutor:
         steps = iter(ld.plan_steps())
         steps_ready = getattr(ld, "stream_steps_ready", None)
         pulled = 0
-        #: (EpochPlan, StepPlan, per-node futures) issued but not yet assembled.
+        #: (EpochPlan, StepPlan, per-node futures, the step it serves) issued
+        #: but not yet assembled.
         pending: deque = deque()
         exhausted = False
         while not run.cancel.is_set():
@@ -277,23 +299,27 @@ class PrefetchExecutor:
                         break
                 try:
                     ep, sp = next(steps)
-                    pulled += 1
                 except StopIteration:
                     exhausted = True
                     break
+                serves = run.first_step + pulled
+                pulled += 1
                 futs = None
                 if collect:
                     futs = [
                         run.pool.submit(
-                            ld.store.read_ranges,
+                            _read_serving, serves, ld.store.read_ranges,
                             [(c.start, c.stop) for c in npn.chunks],
                         )
                         for npn in sp.nodes
                     ]
-                pending.append((ep, sp, futs))
+                pending.append((ep, sp, futs, serves))
             if not pending:
                 return
-            ep, sp, futs = pending.popleft()
+            ep, sp, futs, serves = pending.popleft()
+            tr = obs_trace.get()
+            tr.set_thread_step(serves)
+            t0 = tr.t()
             # Peer fetches are legal exactly now — the previous step's deltas
             # are applied, this step's are not — and they overlap the tail of
             # this step's in-flight chunk reads.
@@ -305,9 +331,10 @@ class PrefetchExecutor:
                 )
             else:
                 sb = ld.execute_step(ep, sp, chunk_arrays=chunk_arrays)
+            tr.rec(obs_trace.PREFETCH_ASSEMBLE, t0)
             if not self._put(run, sb):
                 break
         # Cancelled: wait out in-flight reads so pool shutdown is clean.
-        for _, _, futs in pending:
+        for _, _, futs, _ in pending:
             for f in futs or ():
                 f.cancel()

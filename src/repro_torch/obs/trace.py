@@ -19,15 +19,26 @@ waits, rank-loop step sections, trainer compute, fault firings).  Sites
 stamp two free integer payload fields ``a``/``b`` (bytes read, source node,
 attempt index, ...) and the tracer's *current step* — set by the rank loop
 via :meth:`Tracer.set_step` — so the report CLI can attribute every span,
-including ones recorded on server/prefetch threads, to a training step.
+including ones recorded on server/prefetch threads, to a training step.  A
+thread whose work serves another step than the current one (a prefetch
+thread assembling a batch ahead, an I/O worker reading for it) stamps that
+step instead, through :meth:`Tracer.set_thread_step`.
+
+The tracer also keeps a clock anchor: a ``perf_counter`` reading and a
+``time.time_ns()`` reading taken back to back, at :func:`enable` and again
+on :meth:`Tracer.anchor`.  :meth:`Tracer.epoch_s` maps a span's
+``perf_counter`` seconds onto Unix-epoch seconds, the clock of
+``torch.profiler``'s kineto events, so spans and device operations share
+one time line.
 
 Exports: ``trace-rank{r}.jsonl`` (one JSON object per record, seconds) and
 ``trace-rank{r}.trace.json`` (Chrome trace-event format, microseconds —
 loadable in Perfetto / ``chrome://tracing``).
 
-Own copy of the JAX package's ``obs/trace.py``: the same kinds in the same
-registration order and byte-identical exports for the same records, so
-either package's report CLI reads the other's dumps.
+Own copy of the JAX package's ``obs/trace.py``: the same 20 well-known kinds
+in the same registration order (the port's own kinds follow them) and
+byte-identical exports for the same records, so either package's report
+CLI reads the other's dumps.
 """
 from __future__ import annotations
 
@@ -97,8 +108,16 @@ STEP_PEER = kind_id("step.peer")                # gather_peers section
 STEP_EXECUTE = kind_id("step.execute")          # mutating execute_step section
 HB_SEND = kind_id("hb.send")                    # synchronous heartbeat
 TRAIN_MAKE_BATCH = kind_id("train.make_batch")  # StepBatch -> model batch
-TRAIN_COMPUTE = kind_id("train.compute")        # jitted step + block_until_ready
+TRAIN_COMPUTE = kind_id("train.compute")        # step + host copy of its metrics
 FAULT = kind_id("fault")                        # instant; a=nth/step, b=seed
+# -- the port's own kinds, after the 20 both packages share --------------------
+BATCH_TO_GLOBAL = kind_id("batch.to_global")    # a=rows computed, b=rows of weight 0
+BATCH_STAGE = kind_id("batch.stage")            # host batch -> device; a=bytes
+PREFETCH_ASSEMBLE = kind_id("prefetch.assemble")    # peers + reads + execute_step
+STEP_FORWARD = kind_id("step.forward")          # one microbatch's loss
+STEP_BACKWARD = kind_id("step.backward")        # its gradients
+STEP_ACCUMULATE = kind_id("step.accumulate")    # their adds into the accumulator
+STEP_OPTIMIZER = kind_id("step.optimizer")      # AdamW's update
 
 _NULL_CTX = nullcontext()
 
@@ -106,12 +125,14 @@ _NULL_CTX = nullcontext()
 class _Ring:
     """One thread's preallocated record buffer (count wraps, rows overwrite)."""
 
-    __slots__ = ("buf", "n", "tid")
+    __slots__ = ("buf", "n", "tid", "step")
 
     def __init__(self, capacity: int, tid: str):
         self.buf = np.zeros(capacity, RECORD_DTYPE)
         self.n = 0
         self.tid = tid
+        #: this thread's step stamp; None follows the tracer's current step
+        self.step = None
 
 
 class Tracer:
@@ -130,12 +151,35 @@ class Tracer:
         #: (including records from server/prefetch threads) — per-step
         #: attribution in ``repro_torch.obs.report``.
         self.step = -1
+        self.anchor()
 
     # perf_counter straight through: site code does ``t0 = tr.t()``.
     t = staticmethod(time.perf_counter)
 
     def set_step(self, step: int) -> None:
         self.step = step
+
+    def set_thread_step(self, step: int | None) -> None:
+        """Stamp the calling thread's records with ``step`` (the step its
+        work serves) in place of the current step; ``None`` follows the
+        current step again."""
+        self._ring().step = step
+
+    def anchor(self) -> tuple[float, int]:
+        """Take the clock anchor anew: ``(perf_counter seconds, Unix-epoch
+        ns)`` read back to back, the ``perf_counter`` reading the mean of
+        one taken before and one after the epoch reading."""
+        p0 = time.perf_counter()
+        ns = time.time_ns()
+        p1 = time.perf_counter()
+        self.clock = (0.5 * (p0 + p1), ns)
+        return self.clock
+
+    def epoch_s(self, t):
+        """``perf_counter`` seconds ``t`` (a float or an array) as Unix-epoch
+        seconds, through the latest anchor."""
+        pc, ns = self.clock
+        return ns * 1e-9 + (t - pc)
 
     def _ring(self) -> _Ring:
         ring = getattr(self._local, "ring", None)
@@ -152,7 +196,8 @@ class Tracer:
         if t1 is None:
             t1 = time.perf_counter()
         ring = self._ring()
-        ring.buf[ring.n % self.capacity] = (t0, t1, kind, self.step, a, b)
+        step = self.step if ring.step is None else ring.step
+        ring.buf[ring.n % self.capacity] = (t0, t1, kind, step, a, b)
         ring.n += 1
 
     def instant(self, kind: int, a: int = 0, b: int = 0) -> None:
@@ -264,6 +309,9 @@ class _NullTracer:
         return 0.0
 
     def set_step(self, step: int) -> None:
+        pass
+
+    def set_thread_step(self, step: int | None) -> None:
         pass
 
     def rec(self, kind: int, t0: float, t1: float | None = None,

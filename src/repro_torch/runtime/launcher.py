@@ -1130,7 +1130,7 @@ def _rank_main(rank: int, cfg: dict) -> None:
                     step_i = pulled[node]
                     cep, csp = next(iters[node])
                     futs = (
-                        readahead.submit(owned[node].store, csp)
+                        readahead.submit(owned[node].store, csp, step_i)
                         if readahead is not None and step_i > idx else None
                     )
                     prefetched[(node, step_i)] = (cep, csp, futs)

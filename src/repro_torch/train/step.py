@@ -32,6 +32,12 @@ plan, and the model ranks compute their own heads, hidden units, experts,
 channels and vocabulary.  The loss
 is the same on every model rank, so ``Σw`` and the loss sum are still
 reduced over the data axes only.
+
+Traced (:mod:`repro_torch.obs.trace`), per microbatch: ``step.forward`` (its
+view of the params and the loss), ``step.backward`` (``autograd.grad``) and
+``step.accumulate`` (the adds into the accumulator); once a step:
+``step.optimizer`` (the division by ``Σw`` and AdamW's update).  They time
+the host's dispatch of each phase: the card runs it asynchronously.
 """
 from __future__ import annotations
 
@@ -41,6 +47,7 @@ import torch
 
 from repro_torch.distributed import compression, fsdp, tensor_parallel
 from repro_torch.distributed.sharding import param_sharding
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adamw import (AdamWConfig, OptState, apply_updates, init_opt_state,
                                      torch_dtype)
 
@@ -100,6 +107,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
                 # the params' global shapes are fixed for the step's lifetime
 
     def step(state, batch):
+        tr = obs_trace.get()
         params = state["params"]
         names = list(params)
         reduce_dims, plan = (), None
@@ -130,6 +138,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
         for i in range(accum):
             mb = {k: x.reshape((accum, x.shape[0] // accum) + x.shape[1:])[i]
                   for k, x in batch.items()}
+            t = tr.t()
             view = leaves if mesh is None else fsdp.gathered(leaves, params, mesh,
                                                              reduce_dims, plan)
             loss, metrics = loss_fn(view, mb)
@@ -138,12 +147,17 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
                 tokens = torch.ones((), dtype=torch.float32, device=device)
             tokens = tokens.detach()
             lsum = loss * tokens
+            tr.rec(obs_trace.STEP_FORWARD, t)
+            t = tr.t()
             # a leaf the loss does not reach (the ssm family's ln2) gets a
             # zero gradient, as under jax.grad
             g = torch.autograd.grad(lsum, [leaves[k] for k in names], allow_unused=True,
                                     materialize_grads=True)
+            tr.rec(obs_trace.STEP_BACKWARD, t)
+            t = tr.t()
             for k, gk in zip(names, g):
                 gacc[k].add_(gk.to(adt))
+            tr.rec(obs_trace.STEP_ACCUMULATE, t)
             del g, view  # one set of gradients alive at a time, beside the accumulator
             denom = denom + tokens
             loss_sum = loss_sum + lsum.detach()
@@ -152,6 +166,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
             denom, loss_sum = fsdp.all_reduce(torch.stack([denom, loss_sum]), mesh,
                                               reduce_dims).unbind()
 
+        t = tr.t()
         # an f32 accumulator is divided in place: the same values, without a
         # second copy of every gradient
         scale = torch.clamp_min(denom, 1.0)
@@ -176,6 +191,7 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, loss_fn: Callable, *,
                                fsdp.wrap_like(new_opt.nu, opt.nu), new_opt.step)
         new_state["params"] = new_params
         new_state["opt"] = new_opt
+        tr.rec(obs_trace.STEP_OPTIMIZER, t)
         metrics = {"loss": loss_sum / scale, "tokens": denom, **om}
         return new_state, metrics
 

@@ -15,7 +15,9 @@ contract:
   * wall time is split into load (``train.make_batch``) and compute
     (``train.compute``) spans, the paper's Fig. 3 breakdown; the port also
     counts the time spent waiting for the loader's next batch (``wait_s``),
-    which the JAX package's breakdown leaves out.
+    which the JAX package's breakdown leaves out.  Inside them the tracer
+    sees ``batch.to_global`` and ``batch.stage`` (load) and the step's
+    ``step.*`` phases (compute).
 
 On the card, ``make_batch``'s host arrays are copied into one of two sets
 of pinned buffers and sent with ``non_blocking`` copies on a side stream;
@@ -165,10 +167,20 @@ class Trainer:
     # -- main loop -------------------------------------------------------------
 
     def _to_device(self, batch: dict) -> dict:
+        """The host batch on the device, traced as ``batch.stage`` (a =
+        bytes staged; on the card the stager's wait for its set's previous
+        copy included)."""
+        tr = obs_trace.get()
+        t0 = tr.t()
         if self._stager is not None:
-            return self._stager(batch)
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                for k, v in batch.items()}
+            out = self._stager(batch)
+        else:
+            out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+                   for k, v in batch.items()}
+        if tr.enabled:
+            tr.rec(obs_trace.BATCH_STAGE, t0,
+                   a=sum(int(np.asarray(v).nbytes) for v in batch.values()))
+        return out
 
     def run(self, max_steps: int | None = None):
         if isinstance(self.loader, PrefetchExecutor):
@@ -190,6 +202,8 @@ class Trainer:
             fast_forward(self.skip_steps)
             global_step = self.skip_steps
         tr = obs_trace.get()
+        if executor is not None:
+            executor.first_step = global_step  # its batches' trace stamps
         batches = iter(source)
         try:
             while True:

@@ -143,6 +143,37 @@ def test_fast_forward_and_to_global_match(stores, name):
         assert td.tobytes() == rd.tobytes() and tw.tobytes() == rw.tobytes()
 
 
+def test_read_ahead_is_traced_as_the_step_it_serves(stores):
+    """Chunk reads issued ahead, by the rank loop's read-ahead and by the
+    prefetch executor, carry the step they serve, not the current one."""
+    from repro_torch.data.prefetch import PrefetchExecutor, WindowReadAhead
+    from repro_torch.obs import trace as obs_trace
+
+    _, t_store = stores["binary"]
+    pipe = tdata.build_pipeline(_spec(tdata, "solar", t_store, GEOMETRIES["A"]))
+    _, sp = next(iter(pipe.plan_steps()))
+    tracer = obs_trace.enable()
+    try:
+        tracer.set_step(1)
+        with WindowReadAhead(2) as ra:
+            assert WindowReadAhead.collect(ra.submit(t_store, sp, 4))
+        ex = PrefetchExecutor(pipe, depth=2, num_workers=2)
+        ex.first_step = 10
+        with ex:
+            got = [sb for _, sb in zip(range(3), ex)]
+    finally:
+        obs_trace.disable()
+    assert len(got) == 3
+    recs, threads, _ = tracer.records()
+    rows = [(obs_trace.kind_name(int(r["kind"])), int(r["step"]), th)
+            for r, th in zip(recs, threads)]
+    reads = [(s, th) for k, s, th in rows if k == "chunk.read"]
+    assembled = [s for k, s, _ in rows if k == "prefetch.assemble"]
+    assert reads and all(th.startswith("solar-io") for _, th in reads)
+    assert 4 in {s for s, _ in reads} and all(s == 4 or s >= 10 for s, _ in reads)
+    assert assembled[:3] == [10, 11, 12] and assembled == sorted(assembled)
+
+
 @pytest.mark.parametrize("writer", ["jax", "torch"])
 @pytest.mark.parametrize("backend", ["binary", "memory", "sharded", "hdf5"])
 def test_store_reads_back_bit_for_bit_in_the_other_package(tmp_path, backend, writer):

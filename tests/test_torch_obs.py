@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import json
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -112,6 +113,79 @@ def test_kind_interning_is_stable():
     kid = obs_trace.kind_id("fault.crash:3")
     assert obs_trace.kind_id("fault.crash:3") == kid
     assert obs_trace.kind_name(kid) == "fault.crash:3"
+
+
+def test_port_kinds_follow_the_twenty_shared_ones():
+    names = obs_trace.kind_names()
+    assert names[20:27] == ["batch.to_global", "batch.stage", "prefetch.assemble",
+                            "step.forward", "step.backward", "step.accumulate",
+                            "step.optimizer"]
+    assert (obs_trace.BATCH_TO_GLOBAL, obs_trace.STEP_OPTIMIZER) == (20, 26)
+
+
+def test_thread_step_stamps_work_done_for_another_step():
+    """A thread serving a later step stamps that step until it lets go;
+    the other threads keep the current step."""
+    tr = Tracer(capacity=16)
+    tr.set_step(3)
+
+    def ahead():
+        tr.set_thread_step(5)
+        tr.instant(obs_trace.CHUNK_READ, a=0)
+        tr.set_step(4)  # the current step moves on; the thread's stays
+        tr.instant(obs_trace.CHUNK_READ, a=1)
+        tr.set_thread_step(None)
+        tr.instant(obs_trace.CHUNK_READ, a=2)
+
+    worker = threading.Thread(target=ahead, name="io")
+    worker.start()
+    worker.join(timeout=30)
+    assert not worker.is_alive()
+    tr.instant(obs_trace.STEP, a=3)
+    recs, tids, _ = tr.records()
+    main = threading.current_thread().name
+    assert [(t, int(r["a"]), int(r["step"])) for r, t in zip(recs, tids)] == [
+        ("io", 0, 5), ("io", 1, 5), ("io", 2, 4), (main, 3, 4)]
+    obs_trace.get().set_thread_step(7)  # the no-op tracer takes it too
+
+
+def test_anchor_maps_perf_counter_seconds_onto_the_epoch():
+    tr = Tracer(capacity=4)
+    pc, ns = tr.anchor()
+    assert tr.clock == (pc, ns)
+    assert tr.epoch_s(pc) == pytest.approx(ns * 1e-9, abs=1e-6)
+    assert tr.epoch_s(np.array([pc, pc + 2.5])) - ns * 1e-9 == pytest.approx([0.0, 2.5],
+                                                                            abs=1e-6)
+    assert abs(tr.epoch_s(time.perf_counter()) - time.time_ns() * 1e-9) < 5e-3
+
+
+def test_spans_land_on_the_profilers_events_within_a_millisecond():
+    """Under ``torch.profiler`` (CPU activity), a span around a
+    ``record_function`` range, mapped through the anchor, lands on the
+    range's kineto event.  The best of a few tries is held to it: a thread
+    descheduled between the span's start and the range's only adds delay."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    offsets = []
+    for _ in range(5):
+        tr = obs_trace.enable(capacity=16)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            tr.anchor()
+            t0 = tr.t()
+            with record_function("anchor.probe"):
+                torch.ones(64).sum()
+                time.sleep(0.01)
+            tr.rec(obs_trace.STEP, t0)
+        (span,), _, _ = tr.records()
+        (ev,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "anchor.probe"]
+        start = ev.start_ns() * 1e-9
+        end = start + ev.duration_ns() * 1e-9
+        offsets.append(max(abs(start - tr.epoch_s(span["t0"])),
+                           abs(end - tr.epoch_s(span["t1"]))))
+        if offsets[-1] < 1e-3:
+            break
+    assert min(offsets) < 1e-3, offsets
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@ Both runs see the same batches (the plans and stream digests are equal,
 test_torch_data.py) and start from the same parameters; they differ only in
 the f32 order of the convolutions' sums (test_torch_cnn.py), which the
 optimizer carries from step to step."""
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -215,23 +217,77 @@ def test_launcher_trains_both_loaders_and_resumes(tmp_path, capsys):
 
 def test_trainer_records_its_spans(surrogate_setup):
     """The flight recorder sees the loop: one make-batch and one compute
-    span a step, stamped with the step, plus the chunk reads and prefetch
-    waits under them."""
+    span a step, stamped with the step; inside make-batch the padded batch
+    (its rows and rows of weight 0) and its staging (its bytes), inside
+    compute the step's phases; the prefetch waits with the queue's depth;
+    the pipeline's assembly and its chunk reads stamped with the step they
+    serve."""
     from repro_torch.obs import trace as obs_trace
 
     cfg, store = surrogate_setup
+    store.reset_counters()
+    ld = _ld("solar", store)
+    opt = AdamWConfig(lr=1e-3)
+    step = make_train_step(_Cfg(), opt, lambda p, b: cnn.surrogate_loss(p, b, cfg))
+    make, batches = train_surrogate.make_batch_fn(cfg, ld.capacity), []
+
+    def make_batch(sb):
+        batches.append(make(sb))
+        return batches[-1]
+
+    t = Trainer(loader=ld, step_fn=step, state=init_train_state(_params(cfg), opt),
+                make_batch=make_batch, prefetch_depth=2, num_workers=2, device="cpu")
     tracer = obs_trace.enable()
     try:
-        _trainer(cfg, store, "solar", steps=3)
+        t.run(max_steps=3)
     finally:
         assert obs_trace.disable() is tracer
     recs, threads, dropped = tracer.records()
     names = [obs_trace.kind_name(int(k)) for k in recs["kind"]]
     assert dropped == 0 and len(threads) == len(recs)
+    main = threading.current_thread().name
+
+    def rows(kind):
+        return [(r, th) for r, th, n in zip(recs, threads, names) if n == kind]
+
+    outer = {}
     for kind in ("train.make_batch", "train.compute"):
-        rows = recs[[n == kind for n in names]]
-        assert rows["step"].tolist() == [0, 1, 2]
-        assert (rows["t1"] >= rows["t0"]).all()
-    assert names.count("prefetch.qwait") >= 3
-    assert names.count("chunk.read") > 0
+        got = rows(kind)
+        assert [int(r["step"]) for r, _ in got] == [0, 1, 2]
+        assert all(r["t1"] >= r["t0"] and th == main for r, th in got)
+        outer[kind] = {int(r["step"]): r for r, _ in got}
+    for kind, parent in (("batch.to_global", "train.make_batch"),
+                         ("batch.stage", "train.make_batch"),
+                         ("step.forward", "train.compute"),
+                         ("step.backward", "train.compute"),
+                         ("step.accumulate", "train.compute"),
+                         ("step.optimizer", "train.compute")):
+        got = rows(kind)
+        assert [int(r["step"]) for r, _ in got] == [0, 1, 2], kind  # grad_accum 1
+        for r, th in got:
+            p = outer[parent][int(r["step"])]
+            assert th == main and p["t0"] <= r["t0"] <= r["t1"] <= p["t1"], kind
+    assert len(batches) == 3
+    for (r, _), batch in zip(rows("batch.to_global"), batches):
+        w = batch["weights"]
+        assert (int(r["a"]), int(r["b"])) == (w.size, int(np.sum(w == 0)))
+    for (r, _), batch in zip(rows("batch.stage"), batches):
+        assert int(r["a"]) == sum(np.asarray(v).nbytes for v in batch.values())
+    waits = rows("prefetch.qwait")
+    assert len(waits) >= 3 and all(0 <= int(r["a"]) <= 2 and th == main for r, th in waits)
+    # the pipeline assembles steps 0, 1, ... in order, each before the
+    # trainer takes it, and a step's chunk reads end before its assembly
+    assembled = {int(r["step"]): r for r, _ in rows("prefetch.assemble")}
+    assert {th for _, th in rows("prefetch.assemble")} == {"solar-pipeline"}
+    assert sorted(assembled) == list(range(len(assembled))) and len(assembled) >= 3
+    for s in range(3):
+        assert assembled[s]["t1"] <= outer["train.make_batch"][s]["t0"]
+    reads = rows("chunk.read")
+    assert {int(r["step"]) for r, _ in reads} >= {0}
+    for r, th in reads:
+        assert th.startswith("solar-io")
+        if int(r["step"]) in assembled:
+            assert r["t1"] <= assembled[int(r["step"])]["t1"]
+        else:  # read ahead for a step the run stopped before
+            assert int(r["step"]) > max(assembled)
     assert obs_trace.get().enabled is False  # back to the no-op tracer

@@ -215,6 +215,31 @@ def test_grad_accum_two_equals_one_on_the_same_batch():
         np.testing.assert_allclose(s1["params"][k], s2["params"][k], rtol=0, atol=1e-9)
 
 
+
+def test_step_traces_each_microbatchs_phases_in_order():
+    """With tracing on, a step of ``grad_accum`` 4 records forward, backward
+    and accumulate for each microbatch, then one optimizer span, one after
+    another on the calling thread."""
+    from repro_torch.obs import trace as obs_trace
+
+    tcfg = SURROGATES[NAME].reduced()
+    opt = tadamw.AdamWConfig(lr=1e-3)
+    batch = {k: torch.from_numpy(v) for k, v in _batch(tcfg, 8).items()}
+    fn = tstep.make_train_step(_Cfg(4), opt, lambda p, b: cnn.surrogate_loss(p, b, tcfg))
+    state = tstep.init_train_state(_to_torch(_jax_params(7)), opt)
+    tracer = obs_trace.enable()
+    try:
+        fn(state, batch)
+    finally:
+        obs_trace.disable()
+    recs, _, dropped = tracer.records()
+    assert dropped == 0
+    names = [obs_trace.kind_name(int(k)) for k in recs["kind"]]
+    assert names == ["step.forward", "step.backward", "step.accumulate"] * 4 + [
+        "step.optimizer"]
+    assert (recs["t1"] >= recs["t0"]).all() and (recs["t0"][1:] >= recs["t1"][:-1]).all()
+
+
 # -- checkpoints ------------------------------------------------------------------
 
 def _states(state_dtype, error_feedback):
