@@ -5,8 +5,9 @@
 
 Phases, all run in order, each of which must pass:
   1. build   — compile every hand-written kernel under ``src/repro_torch/
-               kernels/csrc`` (three forward, three backward) with nvcc, one
-               process per source, in parallel;
+               kernels/csrc`` (three forward, three backward and the stem
+               convolution's weight gradient) with nvcc, one process per
+               source, in parallel;
   2. kernels — hold each kernel against its plain PyTorch version on the
                card: the shape sweeps of ``tests/test_kernels.py`` in f32 and
                bf16, the edges of the bf16 tensor-core attention kernel, plus
@@ -98,8 +99,10 @@ Phases, all run in order, each of which must pass:
                every step weighs the global batch, solar's and naive's
                gradients agree at the first steps (paper Eq. 3), and a
                checkpoint at step k resumes into the same step ids.  No
-               hand-written kernel lies on this path: the launch counts,
-               set to 0 before each run, must read 0 after it.  Prints a
+               language model's kernel lies on this path: their launch
+               counts, set to 0 before each run, must read 0 after it; the
+               stem convolution's weight gradient must launch once a step
+               for each of ``cnn.stem_layers`` (train_small too).  Prints a
                ``{"train": [...]}`` line of step, load and loader readings;
      lm_train — hymba-1.5b at full width and depth, qwen2-0.5b at full
                width, falcon-mamba-7b at 8 of 64 layers, qwen2-moe-a2.7b at 3
@@ -199,8 +202,10 @@ Phases, all run in order, each of which must pass:
                eagerly and by its kernels' device time; K2 forward and
                backward at qwen2-moe-a2.7b's and llava-next-mistral-7b's
                training shapes (hd 128) and at whisper-medium's encoder and
-               cross-attention, K1 at d = 2048), the card's name
-               and power limit, and last
+               cross-attention, K1 at d = 2048; the stem convolution's
+               weight gradient at cosmoflow's cell shape, B 24 of 128^3 x
+               4, beside its f32 bound, its plain version and cuDNN's
+               ``conv3d_weight``), the card's name and power limit, and last
                the ``{"ok": true, "device": ...}`` line.
 
 Exits non-zero and prints no result when there is no card or a phase
@@ -558,7 +563,8 @@ def max_sm_clock_hz() -> float:
 
 
 def counters():
-    """{kernel: (wrapper module, its launch count's name)}: the six kernels."""
+    """{kernel: (wrapper module, its launch count's name)}: the six kernels of
+    the language models (the stem's weight gradient counts apart)."""
     from repro_torch.kernels import flash_attention, rmsnorm, selective_scan
 
     return {"flash_attention": (flash_attention, "launches"),
@@ -795,6 +801,73 @@ def norm_bound(x, scale):
     return w.bytes / HBM_BYTE_S * 1e3, "bytes"
 
 
+# cosmoflow's stem in the benchmark's cell: 24 rows of 128^3 x 4 -> 32 channels
+STEM_SHAPE = (24, 4, 32, (128, 128, 128))
+
+
+def stem_inputs(n, cin, cout, dims, seed=5):
+    """x and dy of the stem convolution, channels-last as the model hands
+    them to the kernel, and the pads ``models/cnn.py`` gives ``dims``."""
+    from repro_torch.models import cnn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cl = torch.channels_last_3d
+    x = torch.randn((n, cin) + dims, generator=g, device="cuda").contiguous(memory_format=cl)
+    dy = torch.randn((n, cout) + tuple(-(-s // 2) for s in dims), generator=g,
+                     device="cuda").contiguous(memory_format=cl)
+    return x, dy, cnn.conv_pads(dims)
+
+
+def stem_wgrad_row(launches_by_path: dict) -> dict:
+    """The stem weight gradient at ``STEM_SHAPE``: the kernel's CUDA-graph
+    median, its bound (f32 FFMA and bytes, ``kernels/work.conv_wgrad``), the
+    plain version's time and cuDNN's ``conv3d_weight`` (TF32 off) as the
+    library's, and the kernel's error against the plain version in f64.
+    ``launches_by_path`` are the training runs' launch counts (train_small,
+    train); ``report_calls`` counts this row's own calls apart."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_wgrad, ref, work
+
+    n, cin, cout, dims = STEM_SHAPE
+    x, dy, pads = stem_inputs(n, cin, cout, dims)
+    assert not torch.backends.cudnn.allow_tf32
+    before = conv_wgrad.launches
+    got = conv_wgrad.conv3d_stem_wgrad(x, dy, pads)
+    want = ref.conv3d_stem_wgrad_ref(x.double(), dy.double(), pads)
+    err = max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(got, want))
+    del want
+    again = conv_wgrad.conv3d_stem_wgrad(x, dy, pads)
+    same_bits = all(torch.equal(a, b) for a, b in zip(got, again))
+    xp = F.pad(x, pads)
+    w_shape = (cout, cin, 3, 3, 3)
+    kernel_ms = graph_ms(lambda: conv_wgrad.conv3d_stem_wgrad(x, dy, pads))
+    plain_ms = cuda_ms(lambda: ref.conv3d_stem_wgrad_ref(x, dy, pads), iters=3, repeats=3,
+                       warmup=1)
+    library_ms = cuda_ms(lambda: torch.nn.grad.conv3d_weight(xp, w_shape, dy, stride=2),
+                         iters=2, repeats=3, warmup=1)
+    w = work.conv_wgrad(dy.numel() // cout, 27 * cin, cout, x.numel())
+    parts = {"f32_ops": w.f32_ops / PEAK_F32_FLOP_S * 1e3, "bytes": w.bytes / HBM_BYTE_S * 1e3}
+    bound_by = max(parts, key=parts.get)
+    report_calls = conv_wgrad.launches - before
+    log(f"[report] conv3d_stem_wgrad x [{n},{cin},{dims}] dy [{n},{cout},...] f32: kernel "
+        f"{kernel_ms:.4f} ms (graph), plain {plain_ms:.3f}, cuDNN conv3d_weight {library_ms:.3f};"
+        f" bound {parts[bound_by]:.4f} ({bound_by}; parts {parts}); max rel err {err:.2e}; "
+        f"same bits {same_bits}; training launches {launches_by_path}; report calls "
+        f"{report_calls}")
+    if not err <= 1e-5 or not same_bits:
+        raise AssertionError(f"conv3d_stem_wgrad: error {err:.3e} or runs that differ")
+    return {"name": "conv3d_stem_wgrad", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/conv3d_stem_wgrad.cu", "replaces": None,
+            "shape": f"x [{n},{cin},{dims[0]},{dims[1]},{dims[2]}] f32 channels-last, dy "
+                     f"[{n},{cout},64,64,64] (cosmoflow's stem in its cell)",
+            "launches": sum(launches_by_path.values()), "launches_by_path": launches_by_path,
+            "report_calls": report_calls, "max_rel_err": err, "same_bits": same_bits,
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": parts[bound_by], "bound_by": bound_by, "bound_parts_ms": parts,
+            "library_ms": library_ms, "library": "torch.nn.grad.conv3d_weight (cuDNN, TF32 off)"}
+
+
 # ---------------------------------------------------------------------------
 # Phases
 # ---------------------------------------------------------------------------
@@ -805,8 +878,8 @@ def phase_build():
     from repro_torch.kernels import flash_attention as fa
 
     kernels = _build.names()
-    if kernels != ["flash_attention", "flash_attention_bwd", "rms_norm", "rms_norm_bwd",
-                   "selective_scan", "selective_scan_bwd"]:
+    if kernels != ["conv3d_stem_wgrad", "flash_attention", "flash_attention_bwd", "rms_norm",
+                   "rms_norm_bwd", "selective_scan", "selective_scan_bwd"]:
         raise AssertionError(f"unexpected kernel set {kernels}")
     t0 = time.perf_counter()
     # the scan's earlier design too, built only to time the current one against
@@ -2085,6 +2158,7 @@ def phase_report(launches: dict, worst: dict, worst_bwd: dict, library_device_ms
         "decode_rows": decode,
     })
     rows += report_bwd(launches, worst_bwd, clock_hz, library_device_ms)
+    rows.append(stem_wgrad_row(launches["conv3d_stem_wgrad"]))
     return rows
 
 
@@ -2403,15 +2477,18 @@ def planted(fault: str | None):
             setattr(cnn, name, fn)
 
 
-def phase_train_small():
+def phase_train_small() -> dict:
     """Each surrogate at reduced() in f32: TRAIN_SMALL_STEPS solar steps on
-    the card against the CPU; the planted faults must exceed the limit."""
+    the card against the CPU; the planted faults must exceed the limit.
+    Returns the stem wgrad kernel's launches in each card run, by path."""
     import tempfile
 
     from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.kernels import conv_wgrad
     from repro_torch.launch import train_surrogate
     from repro_torch.models import cnn
 
+    stem_launches = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_small_") as tmp:
         for arch in ("ptychonn", "autophasenn", "cosmoflow"):
             cfg = SURROGATES[arch].reduced()
@@ -2432,8 +2509,10 @@ def phase_train_small():
             try:
                 want = run("cpu")
                 reset_counts()
+                conv_wgrad.launches = 0
                 got = run("cuda")
                 counts = read_counts()
+                stem = conv_wgrad.launches
 
                 def drift(run_):
                     (la, pa), (lb, pb) = run_, want
@@ -2451,7 +2530,8 @@ def phase_train_small():
                 f"card vs cpu: drift {d:.3e} (loss {dl:.3e}, params {dp:.3e}; limit "
                 f"{TRAIN_SMALL_LIMIT:g}); planted faults "
                 f"{ {k: float(f'{v:.4g}') for k, v in faults.items()} } (each must exceed "
-                f"the limit); losses {[round(v, 6) for v in got[0]]}; launches {counts}")
+                f"the limit); losses {[round(v, 6) for v in got[0]]}; launches {counts}; "
+                f"stem wgrad launches {stem} ({cnn.stem_layers(cfg)} a step)")
             if len(got[0]) != TRAIN_SMALL_STEPS or not all(map(math.isfinite, got[0])):
                 raise AssertionError(f"{arch}: the card's small run did not finish")
             if not d <= TRAIN_SMALL_LIMIT:
@@ -2459,7 +2539,12 @@ def phase_train_small():
             if not all(v > TRAIN_SMALL_LIMIT for v in faults.values()):
                 raise AssertionError(f"{arch}: the limit misses a planted fault: {faults}")
             if any(counts.values()):
-                raise AssertionError(f"{arch}: a hand-written kernel ran: {counts}")
+                raise AssertionError(f"{arch}: a language model's kernel ran: {counts}")
+            if stem != TRAIN_SMALL_STEPS * len(cnn.stem_layers(cfg)):
+                raise AssertionError(f"{arch}: {stem} stem wgrad launches in "
+                                     f"{TRAIN_SMALL_STEPS} steps")
+            stem_launches[f"{arch} train_small"] = stem
+    return stem_launches
 
 
 def _first_grads(cfg, store, loader, args, params, n):
@@ -2508,16 +2593,18 @@ def _step_device_time(cfg, store, loader, args, init, calls=5) -> dict:
     return device_time(lambda: profiled_run(steps), wall, calls)
 
 
-def phase_train() -> list:
+def phase_train() -> tuple[list, dict]:
     """Each surrogate at full width through the launcher, naive then solar;
-    returns the ``train`` line's rows."""
+    returns the ``train`` line's rows and the stem wgrad kernel's launches
+    in each run, by path."""
     import tempfile
 
     from repro_torch.configs.surrogates import SURROGATES
+    from repro_torch.kernels import conv_wgrad
     from repro_torch.launch import train_surrogate
     from repro_torch.models import cnn
 
-    rows = []
+    rows, stem_launches = [], {}
     for arch, samples, nodes, local_batch, buffer, steps in TRAIN:
         cfg = SURROGATES[arch]
         args = _train_args(arch, nodes, local_batch, buffer, steps, 6)
@@ -2537,9 +2624,11 @@ def phase_train() -> list:
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
                     reset_counts()
+                    conv_wgrad.launches = 0
                     t = train_surrogate.train_loader(cfg, store, loader, args, "cuda",
                                                      params=params)
                     counts = read_counts()
+                    stem = conv_wgrad.launches
                     peak = torch.cuda.max_memory_allocated() / 2**30
                     hist = t.metrics_history
                     wall = t.wait_time_s + t.load_time_s + t.compute_time_s
@@ -2562,7 +2651,7 @@ def phase_train() -> list:
                         "loader_wall_s": rep_.wall_time_s,
                         "peak_device_gib": peak,
                         "first_loss": losses[0], "last_loss": losses[-1],
-                        "kernel_launches": counts,
+                        "kernel_launches": counts, "stem_wgrad_launches": stem,
                     }
                     busy = _step_device_time(cfg, store, loader, args, init)
                     row["device_ms_per_step"] = busy["device_ms"]
@@ -2584,8 +2673,12 @@ def phase_train() -> list:
                         raise AssertionError(f"{arch} {loader}: a step's weight is not "
                                              f"the global batch {global_batch}")
                     if any(counts.values()):
-                        raise AssertionError(f"{arch} {loader}: a hand-written kernel "
+                        raise AssertionError(f"{arch} {loader}: a language model's kernel "
                                              f"ran on the training path: {counts}")
+                    if stem != n * len(cnn.stem_layers(cfg)):
+                        raise AssertionError(f"{arch} {loader}: {stem} stem wgrad launches "
+                                             f"in {n} steps")
+                    stem_launches[f"{arch} train {loader}"] = stem
 
                 # paper Eq. 3: solar's step-k batch gives naive's step-k gradient
                 params = {k: v.cuda() for k, v in init.items()}
@@ -2624,7 +2717,7 @@ def phase_train() -> list:
                 store.close()
         gc.collect()
         torch.cuda.empty_cache()
-    return rows
+    return rows, stem_launches
 
 
 def expected_train_counts(cfg, microbatches: int) -> dict:
@@ -4356,9 +4449,10 @@ def main() -> int:
         for name, by_path in dist_launches.items():
             launches[name].update(by_path)
         done("dist_tier_serve")
-        phase_train_small()
+        launches["conv3d_stem_wgrad"] = phase_train_small()
         done("train_small")
-        train_rows = phase_train()
+        train_rows, stem_launches = phase_train()
+        launches["conv3d_stem_wgrad"].update(stem_launches)
         done("train")
         lm_rows, lm_launches = phase_lm_train()
         done("lm_train")

@@ -10,16 +10,17 @@ launch.  On the card each op is differentiable through its
 backward kernel; on the CPU through autograd of the plain version.  The
 counts of kernel launches live on each kernel's wrapper
 (``repro_torch.kernels.flash_attention.launches`` and ``.bwd_launches``,
-likewise for ``.selective_scan`` and ``.rmsnorm``).
+likewise for ``.selective_scan`` and ``.rmsnorm``; ``.conv_wgrad.launches``).
 """
 from __future__ import annotations
 
+from repro_torch.kernels import conv_wgrad as _cw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import ref
 from repro_torch.kernels import rmsnorm as _rn
 from repro_torch.kernels import selective_scan as _ss
 
-__all__ = ["flash_attention", "selective_scan", "rms_norm"]
+__all__ = ["flash_attention", "selective_scan", "rms_norm", "conv3d_stem_wgrad"]
 
 
 def _on_cpu(t, op: str) -> bool:
@@ -71,3 +72,13 @@ def rms_norm(x, scale, *, eps: float = 1e-6, block_rows: int = 256):
     if _on_cpu(x, "rms_norm"):
         return ref.rms_norm_ref(x, scale, eps)
     return _rn.rms_norm(x, scale, eps=eps)
+
+
+def conv3d_stem_wgrad(x, dy, pads):
+    """x [N, C, D, H, W] (C 1, 4 or 8) and dy [N, Cout, Do, Ho, Wo], f32.  (dw
+    [Cout, C, 3, 3, 3], db [Cout]) of ``F.conv3d(F.pad(x, pads), w, b,
+    stride=2)`` for the output gradient ``dy``.  The kernel takes both in the
+    channels-last layout."""
+    if _on_cpu(x, "conv3d_stem_wgrad"):
+        return ref.conv3d_stem_wgrad_ref(x, dy, pads)
+    return _cw.conv3d_stem_wgrad(x, dy, pads)

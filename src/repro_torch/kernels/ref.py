@@ -9,9 +9,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 __all__ = ["NEG_INF", "attention_ref", "selective_scan_ref", "rms_norm_ref",
-           "attention_ref_bwd", "selective_scan_ref_bwd", "rms_norm_ref_bwd"]
+           "attention_ref_bwd", "selective_scan_ref_bwd", "rms_norm_ref_bwd",
+           "conv3d_stem_wgrad_ref"]
 
 #: Finite mask value, as in the JAX kernels: ``-inf`` would turn
 #: ``exp(m_prev - m_new)`` on a still fully masked tile into NaN.
@@ -103,3 +105,17 @@ def rms_norm_ref_bwd(x, scale, dy, eps: float = 1e-6):
     dx = r * g - xf * (r ** 3) * mean_xg
     ds = (dy.float() * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
     return dx.to(x.dtype), ds.to(scale.dtype)
+
+
+def conv3d_stem_wgrad_ref(x, dy, pads):
+    """(dw [Cout, C, 3, 3, 3], db [Cout]) of ``F.conv3d(F.pad(x, pads), w,
+    b, stride=2)`` for the output gradient ``dy``; x [N, C, D, H, W], dy [N,
+    Cout, Do, Ho, Wo].  Each tap's weight gradient is dy against the padded
+    input's stride-2 slice that the tap reads."""
+    xp = F.pad(x, pads)
+    do, ho, wo = dy.shape[2:]
+    taps = [torch.einsum("ncdhw,nidhw->ci", dy,
+                         xp[:, :, kd::2, kh::2, kw::2][..., :do, :ho, :wo])
+            for kd in range(3) for kh in range(3) for kw in range(3)]
+    dw = torch.stack(taps, dim=-1).reshape(dy.shape[1], x.shape[1], 3, 3, 3)
+    return dw, dy.sum(dim=(0, 2, 3, 4))

@@ -22,7 +22,7 @@ import math
 from typing import NamedTuple
 
 __all__ = ["Work", "admitted_scores", "attention", "attention_bwd", "scan", "scan_bwd",
-           "norm", "norm_bwd", "record", "recording"]
+           "norm", "norm_bwd", "conv_wgrad", "record", "recording"]
 
 
 class Work(NamedTuple):
@@ -128,6 +128,14 @@ def norm_bwd(rows: int, d: int, x_itemsize: int, scale_itemsize: int) -> Work:
     """RMSNorm's backward: x and dy read, dx written, scale read and ds
     written once."""
     return Work(bytes=3 * rows * d * x_itemsize + 2 * d * scale_itemsize)
+
+
+def conv_wgrad(positions: int, taps: int, cout: int, x_elems: int) -> Work:
+    """The stem convolution's weight and bias gradients: one f32 multiply-add
+    per (position, tap, output channel) and one add per (position, output
+    channel); x and dy read once, dw and db written once (f32)."""
+    return Work(f32_ops=(2 * taps + 1) * positions * cout,
+                bytes=4 * (x_elems + positions * cout + cout * taps + cout))
 
 
 _recorders: list = []

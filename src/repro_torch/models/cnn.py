@@ -29,8 +29,14 @@ What the JAX package's ``"SAME"`` convolutions become here:
   * CosmoFlow's head flattens the NDHWC activation, so the features are
     permuted back to channels-last before the flatten.
 The convolutions themselves are ``F.conv{2,3}d`` and
-``F.conv_transpose{2,3}d``: the JAX package leaves them to XLA, outside any
-Pallas kernel, so this path runs no hand-written kernel.
+``F.conv_transpose{2,3}d``, as the JAX package leaves them to XLA, outside any
+Pallas kernel.  One gradient is a hand-written kernel: a float32 3D
+convolution of 1, 4 or 8 input channels (``conv_wgrad.routes``: the stem of
+AutoPhaseNN and CosmoFlow) is a ``torch.autograd.Function`` whose forward is
+``F.conv3d`` and whose weight and bias gradients are
+``kernels/csrc/conv3d_stem_wgrad.cu`` on the card (its plain version on the
+CPU), traced as ``conv.stem_wgrad``; an input that needs a gradient keeps
+cuDNN's.
 """
 from __future__ import annotations
 
@@ -43,9 +49,11 @@ from torch import nn
 
 from repro_torch import resolve_device
 from repro_torch.configs.surrogates import SurrogateConfig
+from repro_torch.kernels import conv_wgrad, ops
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["Surrogate", "init_surrogate", "surrogate_apply", "surrogate_loss",
-           "same_pads"]
+           "same_pads", "conv_pads", "stem_layers"]
 
 _STRIDE = 2
 _KSIZE = 3
@@ -57,11 +65,52 @@ def same_pads(n: int, stride: int = _STRIDE, ksize: int = _KSIZE) -> tuple[int, 
     return total // 2, total - total // 2
 
 
+class _StemConv(torch.autograd.Function):
+    """A stride-2 3D convolution whose weight and bias gradients are the
+    stem kernel's (``ops.conv3d_stem_wgrad``); the forward and an input's
+    gradient are cuDNN's."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, pads):
+        ctx.save_for_backward(x, w)
+        ctx.pads = pads
+        return F.conv3d(F.pad(x, pads), w, b, stride=_STRIDE)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:  # cuDNN's gradient of the padded input, cropped
+            before, after = ctx.pads[4::-2], ctx.pads[5::-2]  # (d, h, w)
+            spatial = x.shape[2:]
+            padded = x.shape[:2] + tuple(n + a + b for n, a, b in zip(spatial, before, after))
+            dx = torch.nn.grad.conv3d_input(padded, w, dy, stride=_STRIDE)
+            dx = dx[(Ellipsis,) + tuple(slice(a, a + n) for n, a in zip(spatial, before))]
+        if ctx.needs_input_grad[1] or ctx.needs_input_grad[2]:
+            tr = obs_trace.get()
+            t = tr.t()
+            cl = torch.channels_last_3d
+            dw, db = ops.conv3d_stem_wgrad(x.contiguous(memory_format=cl),
+                                           dy.contiguous(memory_format=cl), ctx.pads)
+            tr.rec(obs_trace.CONV_STEM_WGRAD, t, a=dy.numel() // dy.shape[1],
+                   b=27 * x.shape[1])
+        return dx, dw, db, None
+
+
+def conv_pads(spatial) -> tuple[int, ...]:
+    """``F.pad``'s pads of a stride-2 ``"SAME"`` convolution over the axes
+    ``spatial`` (F.pad lists the last axis first)."""
+    pads: list[int] = []
+    for n in reversed(spatial):
+        pads.extend(same_pads(n))
+    return tuple(pads)
+
+
 def _conv(x, w, b, rank: int):
     """Stride-2 ``"SAME"`` convolution of a channels-first ``x``."""
-    pads: list[int] = []
-    for n in reversed(x.shape[2:]):  # F.pad lists the last axis first
-        pads.extend(same_pads(n))
+    pads = conv_pads(x.shape[2:])
+    if conv_wgrad.routes(rank, x.shape[1], w.shape[0], x.dtype):
+        return _StemConv.apply(x, w, b, pads)
     conv = F.conv2d if rank == 2 else F.conv3d
     return conv(F.pad(x, pads), w, b, stride=_STRIDE)
 
@@ -104,6 +153,14 @@ def _layer_channels(cfg: SurrogateConfig) -> tuple[list, list]:
             dec.append((c, cout))
             c = cout
     return enc, dec
+
+
+def stem_layers(cfg: SurrogateConfig) -> list[str]:
+    """The encoder layers whose weight gradient is the stem kernel's."""
+    rank = len(cfg.input_shape) - 1
+    enc, _ = _layer_channels(cfg)
+    return [f"enc.{i}" for i, (cin, cout) in enumerate(enc)
+            if conv_wgrad.routes(rank, cin, cout, torch.float32)]
 
 
 class _Conv(nn.Module):

@@ -118,6 +118,7 @@ STEP_FORWARD = kind_id("step.forward")          # one microbatch's loss
 STEP_BACKWARD = kind_id("step.backward")        # its gradients
 STEP_ACCUMULATE = kind_id("step.accumulate")    # their adds into the accumulator
 STEP_OPTIMIZER = kind_id("step.optimizer")      # AdamW's update
+CONV_STEM_WGRAD = kind_id("conv.stem_wgrad")    # stem weight gradient; a=positions, b=taps
 
 _NULL_CTX = nullcontext()
 

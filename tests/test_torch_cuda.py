@@ -358,8 +358,8 @@ def test_scan_and_norm_kernels_refuse_what_they_do_not_take(cuda):
         rn.rms_norm(x, scale[:32])
 
 
-# -- the surrogate training path (no hand-written kernel: convolutions, the
-# optimizer and the pinned host-to-device staging, on the card) -------------
+# -- the surrogate training path (convolutions, the stem's weight-gradient
+# kernel, the optimizer and the pinned host-to-device staging, on the card) -
 
 class _StepCfg:
     grad_accum = 1
@@ -836,3 +836,90 @@ def test_moe_layer_on_the_card_equals_its_cpu_result(cuda, case):
                               shared=tuple(w.to(cuda) for w in shared), **kw)
     np.testing.assert_allclose(y.cpu().numpy(), want_y.numpy(), atol=1e-5, rtol=1e-5)
     np.testing.assert_allclose(float(aux), float(want_aux), rtol=1e-5)
+
+
+# -- the stem convolution's weight gradient (csrc/conv3d_stem_wgrad.cu) -------
+
+def _stem_inputs(n, cin, cout, dims, device, zero_rows=(), seed=5):
+    """x and dy channels-last (as the model hands them over), the pads
+    ``models/cnn.py`` gives ``dims``."""
+    from repro_torch.models import cnn
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    cl = torch.channels_last_3d
+    x = torch.randn((n, cin) + dims, generator=g, device=device).contiguous(memory_format=cl)
+    dy = torch.randn((n, cout) + tuple(-(-s // 2) for s in dims), generator=g, device=device)
+    for r in zero_rows:
+        dy[r] = 0
+    return x, dy.contiguous(memory_format=cl), cnn.conv_pads(dims)
+
+
+def _stem_agree(got, x, dy, pads):
+    """Against the plain version in f64: within 1e-5 of each output's
+    largest magnitude (f32 sums of up to 2 * 64^3 products, in another
+    order)."""
+    want = ref.conv3d_stem_wgrad_ref(x.double(), dy.double(), pads)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        err = float((a.double() - b).abs().max())
+        assert err <= 1e-5 * float(b.abs().max()), err
+
+
+@pytest.mark.parametrize("n,cin,cout,dims,zero_rows", [
+    (2, 4, 32, (128, 128, 128), ()),  # cosmoflow's stem, two rows
+    (2, 1, 16, (32, 32, 32), ()),     # autophasenn's stem
+    (2, 4, 32, (17, 17, 17), ()),     # odd: a pad before each axis
+    (3, 4, 32, (32, 32, 32), (0, 2)),  # rows of zeros in dy
+    (1, 4, 40, (9, 20, 150), ()),     # two slices of output channels, two tiles along w
+    (2, 8, 16, (12, 7, 33), ()),      # 8 channels, unequal odd and even sides
+])
+def test_stem_wgrad_kernel_matches_plain_version(cuda, n, cin, cout, dims, zero_rows):
+    from repro_torch.kernels import conv_wgrad
+
+    x, dy, pads = _stem_inputs(n, cin, cout, dims, cuda, zero_rows)
+    before = conv_wgrad.launches
+    got = ops.conv3d_stem_wgrad(x, dy, pads)
+    torch.cuda.synchronize()
+    assert conv_wgrad.launches == before + 1
+    _stem_agree(got, x, dy, pads)
+    if zero_rows:  # the rows of zeros add nothing
+        keep = [r for r in range(n) if r not in zero_rows]
+        alone = ops.conv3d_stem_wgrad(x[keep].contiguous(memory_format=torch.channels_last_3d),
+                                      dy[keep].contiguous(memory_format=torch.channels_last_3d),
+                                      pads)
+        for a, b in zip(got, alone):
+            assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+def test_stem_wgrad_kernel_gives_the_same_bits_on_every_run(cuda):
+    """No atomics: the partial sums are added in a fixed order."""
+    from repro_torch.kernels import conv_wgrad
+
+    x, dy, pads = _stem_inputs(2, 4, 32, (64, 64, 64), cuda)
+    before = conv_wgrad.launches
+    runs = [conv_wgrad.conv3d_stem_wgrad(x, dy, pads) for _ in range(2)]
+    assert conv_wgrad.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_stem_conv_gradients_on_the_card(no_tf32):
+    """cosmoflow's stem through models/cnn.py on the card: one launch a
+    backward, and the weight, bias and input gradients of the plain
+    F.conv3d path."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import conv_wgrad
+    from repro_torch.models import cnn
+
+    x, dy, pads = _stem_inputs(2, 4, 32, (32, 32, 32), no_tf32)
+    g = torch.Generator(device=no_tf32).manual_seed(2)
+    w = (torch.randn((32, 4, 3, 3, 3), generator=g, device=no_tf32) / 10).requires_grad_(True)
+    b = torch.randn(32, generator=g, device=no_tf32).requires_grad_(True)
+    x.requires_grad_(True)
+    before = conv_wgrad.launches
+    got = torch.autograd.grad(cnn._conv(x, w, b, 3), (x, w, b), dy)
+    assert conv_wgrad.launches == before + 1
+    want = torch.autograd.grad(F.conv3d(F.pad(x, pads), w, b, stride=2), (x, w, b), dy)
+    for a, c in zip(got, want):
+        assert a.shape == c.shape
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())

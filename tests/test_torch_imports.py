@@ -63,7 +63,8 @@ def test_port_imports_no_jax_and_no_repro():
                  "repro_torch.launch.dryrun", "repro_torch.kernels.work",
                  "repro_torch.stream.ingest", "repro_torch.stream.windows",
                  "repro_torch.stream.driver", "repro_torch.stream.distributed",
-                 "repro_torch.distributed.tensor_parallel"):
+                 "repro_torch.distributed.tensor_parallel",
+                 "repro_torch.kernels.conv_wgrad"):
         assert name in report["imported"]
 
 
