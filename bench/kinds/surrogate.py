@@ -1,8 +1,12 @@
 """CNN surrogates (``configs/<name>.json`` with ``"kind": "surrogate"``),
-trained through the port's ``launch/train_surrogate.py``."""
+trained through the port's ``launch/train_surrogate.py``.  The weights are
+float32, stride-2 3x3x3 convolutions then a two-layer head, drawn normal
+over sqrt(fan-in) with zero biases; the store's samples are standard
+normal floats of the input shape."""
 from __future__ import annotations
 
 import argparse
+import math
 
 import torch
 
@@ -12,6 +16,9 @@ from bench.reference import cnn
 RATE = ("samples_per_s", "samples/s")
 #: a row's work units for the rate: one sample
 UNIT_NAME = "samples"
+DTYPE_KEYS = ()
+CONTROL_ROWS = None
+PROGRAM_LOSS = ("repro_torch.models.cnn", "surrogate_loss")
 
 
 def units_per_row(config: dict, mix: dict) -> int:
@@ -69,3 +76,28 @@ def reference_step(params: dict, rows: torch.Tensor, config: dict, mix: dict, rn
     loss = cnn.loss_sum(params, rows, config["model"], rnd) / rows.shape[0]
     loss.backward()
     return float(loss.detach()), {k: p.grad for k, p in params.items()}
+
+
+def layout(config: dict) -> list:
+    m = config["model"]
+    out = []
+    c = m["input_shape"][-1]
+    spatial = list(m["input_shape"][:-1])
+    for i in range(m["depth"]):
+        co = m["base_channels"] * 2 ** i
+        out += [(f"enc.{i}.w", (co, c, 3, 3, 3), "float32", ("normal", 1 / math.sqrt(c * 27))),
+                (f"enc.{i}.b", (co,), "float32", ("const", 0.0))]
+        c = co
+        spatial = [-(-s // 2) for s in spatial]
+    flat = c * math.prod(spatial)
+    outs = m["output_shape"][0]
+    out += [("head.w1", (flat, 128), "float32", ("normal", 1 / math.sqrt(flat))),
+            ("head.b1", (128,), "float32", ("const", 0.0)),
+            ("head.w2", (128, outs), "float32", ("normal", 1 / math.sqrt(128))),
+            ("head.b2", (outs,), "float32", ("const", 0.0))]
+    return out
+
+
+def data(config: dict, mix: dict, gen, device) -> torch.Tensor:
+    return torch.randn((mix["num_samples"], *config["model"]["input_shape"]), generator=gen,
+                       device=device, dtype=torch.float32)

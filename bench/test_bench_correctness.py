@@ -1,18 +1,20 @@
-"""``correct`` on the CPU at a tiny size, with each cell's limits: a sound
-run of the port passes; the control (the reference in the configuration's
-next lower precision, in the port's place) fails; and so does a run with
-the timed path broken underneath, once for each fault a training cell can
-have (its state returned unchanged; half of the batch left out, the mean
-taken over the rest).  The harness's look for a card is skipped: the cell
-runs on the CPU through the same code it runs on the card."""
+"""``correct`` on the CPU at a tiny size, with each cell's limits, for
+every cell with a cut file (``cuts/<cell>.json``): a sound run of the port
+passes; the control (the reference in the configuration's next lower
+precision, in the port's place) fails; and so does a run with the timed
+path broken underneath, once for each fault a training cell can have (its
+state returned unchanged; half of the batch left out, the mean taken over
+the rest).  The harness's look for a card is skipped: the cell runs on the
+CPU through the same code it runs on the card."""
 from __future__ import annotations
 
+import importlib
 import time
 
 import pytest
 import torch
 
-from bench import cell, compare, manifest, tiny
+from bench import cell, compare, kinds, manifest, tiny
 from bench.follow import follow
 from bench.reference.solar import Membership
 
@@ -49,7 +51,7 @@ def test_the_lower_precision_control_is_not_correct(name):
     seed = 2 ** 32 + 9
     m = Membership(mix["num_samples"], mix["num_epochs"],
                    mix["num_nodes"] * mix["local_batch"], seed)
-    rows = 2 if config["kind"] == "lm" else None   # two rows of 256 tokens a step
+    rows = kinds.get(config["kind"]).CONTROL_ROWS
     ids = [m.batch(0, s)[:rows] for s in range(mix["checked_steps"])]
     ref = follow(config, mix, seed, CPU, ids)
     ctl = follow(config, mix, seed, CPU, ids, precision=config["control"])
@@ -74,16 +76,16 @@ def _halved(loss_fn):
 @pytest.mark.parametrize("name", CELLS)
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_batch"])
 def test_a_broken_step_is_not_correct(name, fault, monkeypatch):
-    from repro_torch.models import cnn, lm
     from repro_torch.train import step
 
+    config, mix = tiny.cell(name, "float32")
     if fault == "state_unchanged":
         monkeypatch.setattr(step, "apply_updates", _unchanged)
-    elif name.startswith("cosmoflow"):
-        monkeypatch.setattr(cnn, "surrogate_loss", _halved(cnn.surrogate_loss))
     else:
-        monkeypatch.setattr(lm, "train_loss", _halved(lm.train_loss))
-    out = _run(name, 2 ** 31 + 101)
+        module, loss = kinds.get(config["kind"]).PROGRAM_LOSS
+        module = importlib.import_module(module)
+        monkeypatch.setattr(module, loss, _halved(getattr(module, loss)))
+    out = _run(name, 2 ** 31 + 101, config, mix)
     assert not out["correct"], out["checks"]
 
 

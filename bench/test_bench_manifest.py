@@ -147,3 +147,29 @@ def test_each_per_layer_metric_has_its_reader_and_agrees_with_it(name):
 def test_metrics_of_one_layer_name_it_alike():
     layers = {m["layer"] for m in BENCH["per_layer"]}
     assert layers == {"entry", "trainer", "loader", "model step", "kernels", "device"}
+
+
+#: what each accepted cell reports; a metric names its cells, so a cell that
+#: a later change adds inherits no reader it does not list
+REPORTS = {
+    "cosmoflow.solar-spill": (
+        ["device_ms_per_sample", "setup_s"],
+        ["batch_load_ms.surrogate", "device_step_ms.surrogate", "idle_share.surrogate",
+         "loader_wait_ms.surrogate", "mfu.surrogate", "pad_share.surrogate",
+         "pfs_reads_per_step", "samples_per_s.surrogate", "step_compute_ms.surrogate",
+         "step_ms_p95.surrogate"]),
+    "hymba-1.5b.train-solar-2k": (
+        ["train_tokens_per_s", "setup_s"],
+        ["batch_load_ms.lm", "device_step_ms.lm", "idle_share.lm", "k2_roofline",
+         "k3_roofline", "loader_wait_ms.lm", "mfu.lm", "pad_share.lm", "step_compute_ms.lm"]),
+}
+
+
+@pytest.mark.parametrize("cell", sorted(REPORTS))
+def test_each_accepted_cell_reports_the_metrics_it_reported(cell):
+    assert ([m["name"] for m in manifest.cell_metrics(BENCH, cell, "end_to_end")],
+            [m["name"] for m in manifest.cell_metrics(BENCH, cell, "per_layer")]) == REPORTS[cell]
+
+
+def test_every_per_layer_metric_lists_its_cells():
+    assert all(m.get("workloads") for m in BENCH["per_layer"])

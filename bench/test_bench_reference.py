@@ -1,9 +1,11 @@
 """The reference's pieces against their definitions: the chunked linear
 scan against a loop, the selective scan's forward and hand-written
 backward against autograd through a step-by-step loop (float64), SOLAR's
-membership, and the reference AdamW against its formula."""
+membership, the reference AdamW against its formula, and the seed's
+weights and store rows against their pinned digests."""
 from __future__ import annotations
 
+import hashlib
 import math
 
 import numpy as np
@@ -161,3 +163,37 @@ def test_weights_are_the_same_for_a_seed_and_differ_between_seeds():
     c = weights.make(config, 6, torch.device("cpu"))
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["enc.0.w"], c["enc.0.w"])
+
+
+#: SHA-256 of ``weights.make`` and ``generator.data`` at each cell's CPU cut
+#: (in the configuration's own dtypes) from seed 2**40 + 7: what a kind
+#: module's layout and data draw must keep, bit for bit, for the ledger's
+#: numbers of a cell to stay comparable
+DIGESTS = {
+    "cosmoflow.solar-spill": (
+        "4b3c7cace19663965899d4f8264502c1981101016b9e90a535fb119bfb65bd9d",
+        "e3abbd6edf578a03be3a1882286ab79f1226f9fbea2199264cfb3323b087cfad"),
+    "hymba-1.5b.train-solar-2k": (
+        "3019a52af8229c4f3bf3f1f5ff32b391d4e3eba9a7beb9c24417eede07d2b17d",
+        "080968cbc484989126c43c1f070534c503aeba6555ef7ec6c6836d5082f0c051"),
+}
+
+
+def _digest(tensors: dict) -> str:
+    h = hashlib.sha256()
+    for name, t in tensors.items():
+        h.update(f"{name}|{t.dtype}|{tuple(t.shape)}|".encode())
+        h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS))
+def test_the_seeds_weights_and_store_rows_keep_their_bits(name):
+    from bench import tiny
+    from bench.traffic import generator, weights
+
+    config, mix = tiny.cell(name)
+    cpu = torch.device("cpu")
+    got = (_digest(weights.make(config, 2 ** 40 + 7, cpu)),
+           _digest({"data": generator.data(config, mix, 2 ** 40 + 7, cpu)}))
+    assert got == DIGESTS[name]

@@ -13,9 +13,9 @@ ones among them), ``checked_steps`` (the first steps the reference
 follows), ``trace_steps`` (steps under the profiler in a ``--trace 1``
 run).
 
-The store's rows come from the seed: a surrogate's samples are standard
-normal floats of its input shape, an LM's rows ``seq_len + 1`` token ids
-drawn uniformly from its vocabulary, made on the device in one draw."""
+The store's rows come from the seed's data stream, made on the device in
+one draw by the configuration's kind (``bench/kinds/<kind>.py``,
+``data``)."""
 from __future__ import annotations
 
 import json
@@ -23,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from bench import kinds
 from bench.traffic.weights import generator
 
 __all__ = ["load", "data", "KEYS"]
@@ -44,14 +45,6 @@ def load(name: str) -> dict:
 
 
 def data(config: dict, mix: dict, seed: int, device) -> torch.Tensor:
-    """Every row of the store, on ``device``: surrogate samples
-    ``[N, *input_shape]`` float32, or LM rows ``[N, seq_len + 1]`` int32."""
-    gen = generator(seed, 1, device)
-    n = mix["num_samples"]
-    if config["kind"] == "surrogate":
-        return torch.randn((n, *config["model"]["input_shape"]), generator=gen,
-                           device=device, dtype=torch.float32)
-    if config["kind"] == "lm":
-        return torch.randint(0, config["model"]["vocab_size"], (n, mix["seq_len"] + 1),
-                             generator=gen, device=device, dtype=torch.int64).to(torch.int32)
-    raise ValueError(f"no data for kind {config['kind']!r}")
+    """Every row of the store, on ``device``, as the configuration's kind
+    draws them from the seed's data stream."""
+    return kinds.get(config["kind"]).data(config, mix, generator(seed, 1, device), device)
