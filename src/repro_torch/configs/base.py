@@ -5,13 +5,20 @@ fields with the same defaults, so a configuration reads the same on both
 sides.  ``reduced()`` gives the CPU-test variant of an architecture (same
 family and wiring, tiny dimensions); the four input-shape cells of the dry
 run are the ``ShapeConfig`` cells of ``SHAPES``.
+
+``InterleavedConfig`` is the port's own: the settings of a stack whose
+layers are of different kinds (Jamba's Mamba and attention layers), which
+the JAX package has no field for.  Its configurations register as port-only
+(``port_only_configs``): ``get_config`` finds them, ``list_configs`` stays
+the JAX package's list.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 
-__all__ = ["ModelConfig", "ShapeConfig", "SHAPES", "register", "get_config", "list_configs"]
+__all__ = ["ModelConfig", "InterleavedConfig", "ShapeConfig", "SHAPES", "register",
+           "get_config", "list_configs", "port_only_configs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,6 +172,54 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class InterleavedConfig(ModelConfig):
+    """A decoder whose layers are Mamba-1 mixers or attention, each followed
+    by the SwiGLU MLP (``family='interleaved'``; Jamba, arXiv:2403.19887).
+    Layer ``i`` is attention when ``i % attn_layer_period ==
+    attn_layer_offset`` (transformers' ``JambaConfig.layers_block_type``),
+    else Mamba.  The Mamba mixer RMS-normalises dt, B and C after
+    ``x_proj``; attention runs without any positional encoding
+    (``rope_theta`` is unused)."""
+
+    attn_layer_period: int = 1
+    attn_layer_offset: int = 0
+
+    @property
+    def layer_kinds(self) -> tuple:
+        """'attention' or 'mamba' for each layer, in order."""
+        return tuple("attention" if i % self.attn_layer_period == self.attn_layer_offset
+                     else "mamba" for i in range(self.num_layers))
+
+    def layer_slot(self, i: int) -> tuple:
+        """(kind of layer ``i``, its index among the layers of that kind)."""
+        kinds = self.layer_kinds
+        return kinds[i], kinds[:i].count(kinds[i])
+
+    def num_params(self) -> int:
+        """Every leaf of ``lm.init_lm``: the embedding (tied: once), each
+        layer's two norms and MLP, the attention layers' projections, the
+        Mamba layers' mixer with its conv bias, dt bias, D and dt/B/C norms,
+        and the final norm."""
+        d, hd, h, k = self.d_model, self.resolved_head_dim, self.num_heads, self.num_kv_heads
+        di, n, r, ck = self.ssm_d_inner, self.ssm_state, self.resolved_dt_rank, self.ssm_conv
+        attn = d * h * hd + 2 * d * k * hd + h * hd * d
+        mamba = (d * 2 * di + ck * di + di + di * (r + 2 * n) + r * di + di + di * n + di
+                 + di * d + r + 2 * n)
+        kinds = self.layer_kinds
+        p = self.vocab_size * d * (1 if self.tie_embeddings else 2) + d
+        p += self.num_layers * (2 * d + 3 * d * self.d_ff)
+        p += kinds.count("attention") * attn + kinds.count("mamba") * mamba
+        return int(p)
+
+    def reduced(self) -> "InterleavedConfig":
+        """Four layers, Mamba, attention, Mamba, attention: an attention
+        layer with a Mamba layer on either side, and more than one layer of
+        each kind on its stack."""
+        return super().reduced().replace(num_layers=4, attn_layer_period=2,
+                                         attn_layer_offset=1, ssm_dt_rank=4)
+
+
+@dataclasses.dataclass(frozen=True)
 class ShapeConfig:
     name: str
     seq_len: int
@@ -188,10 +243,13 @@ SHAPES: dict[str, ShapeConfig] = {
 
 
 _REGISTRY: dict[str, ModelConfig] = {}
+_PORT_ONLY: dict[str, ModelConfig] = {}
 
 
-def register(cfg: ModelConfig) -> ModelConfig:
-    _REGISTRY[cfg.name] = cfg
+def register(cfg: ModelConfig, *, port_only: bool = False) -> ModelConfig:
+    """Register ``cfg`` under its name; ``port_only`` for an architecture
+    the JAX package does not have, kept out of ``list_configs``."""
+    (_PORT_ONLY if port_only else _REGISTRY)[cfg.name] = cfg
     return cfg
 
 
@@ -199,12 +257,21 @@ def get_config(name: str) -> ModelConfig:
     import repro_torch.configs  # noqa: F401  (importing the package registers)
 
     try:
-        return _REGISTRY[name]
+        return _REGISTRY.get(name) or _PORT_ONLY[name]
     except KeyError:
-        raise ValueError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}") from None
+        have = sorted(_REGISTRY) + sorted(_PORT_ONLY)
+        raise ValueError(f"unknown arch {name!r}; have {have}") from None
 
 
 def list_configs() -> list[str]:
+    """The architectures both packages register."""
     import repro_torch.configs  # noqa: F401
 
     return sorted(_REGISTRY)
+
+
+def port_only_configs() -> list[str]:
+    """The architectures only the port registers."""
+    import repro_torch.configs  # noqa: F401
+
+    return sorted(_PORT_ONLY)

@@ -144,15 +144,21 @@ def split_plan(cfg, params: dict, mesh) -> SplitPlan | None:
     """The plan of ``cfg``'s model on ``mesh`` for flat ``params`` (tensors
     or DTensors: only names and global shapes are read); None where no
     ``model`` axis has more than one rank (or for a family other than
-    ``FAMILIES``).  Where no part splits the plan still carries the model
+    ``FAMILIES``); the interleaved family raises on a ``model`` axis of
+    more than one rank.  Where no part splits the plan still carries the model
     group, for the cache's sequence split (:func:`cache_block`)."""
     from repro_torch.distributed.sharding import names_axis, param_sharding, tp_split_dim
 
     names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
-    if "model" not in names or getattr(cfg, "family", None) not in FAMILIES:
+    if "model" not in names:
         return None
+    family = getattr(cfg, "family", None)
     size = mesh.size(names.index("model"))
-    if size == 1:
+    if size > 1 and family == "interleaved":
+        raise NotImplementedError(
+            f"the interleaved family ({cfg.name}) has no split plan: its per-kind layer "
+            f"stacks do not split along model yet")
+    if family not in FAMILIES or size == 1:
         return None
     specs = {k: s.spec for k, s in param_sharding(params, mesh).items()}
 

@@ -487,9 +487,14 @@ def _selective_scan(u, dt, a, b_ssm, c_ssm, d_skip, *, chunk: int = 256,
 
 def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
                 impl: str = "auto", h0=None, conv0=None, return_state=False,
-                split=None):
+                split=None, norm_eps: float = 1e-6, norm_impl: str = "auto"):
     """Mamba-1 mixer.  x [B, S, D]; params dict p (see ``lm.init_lm``).
     ``impl`` selects the selective scan.
+
+    Where p holds ``dt_norm`` [R], ``b_norm`` and ``c_norm`` [N] (Jamba's
+    mixer), dt, B and C are RMS-normalised after ``x_proj``, before
+    ``dt_proj`` and the scan, with ``norm_eps`` through :func:`rms_norm`
+    (``norm_impl``: K1 on the card); without them nothing else changes.
 
     With ``split`` the leaves hold the model rank's DI channels (``in_proj``
     its xin and z columns): the conv, ``dt_proj``, the scan and ``d_skip``
@@ -531,6 +536,10 @@ def mamba_block(x, p, *, dt_rank: int, ssm_state: int, conv_k: int = 4,
     dt_raw = xdbc[..., :dt_rank]
     b_ssm = xdbc[..., dt_rank:dt_rank + ssm_state].contiguous()
     c_ssm = xdbc[..., dt_rank + ssm_state:].contiguous()
+    if "dt_norm" in p:
+        dt_raw = rms_norm(dt_raw.contiguous(), p["dt_norm"], norm_eps, impl=norm_impl)
+        b_ssm = rms_norm(b_ssm, p["b_norm"], norm_eps, impl=norm_impl)
+        c_ssm = rms_norm(c_ssm, p["c_norm"], norm_eps, impl=norm_impl)
     dt = F.softplus(dt_raw @ p["dt_proj"] + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     y, h_last = _selective_scan(xin_c, dt, a, b_ssm, c_ssm, p["d_skip"], h0=h0,

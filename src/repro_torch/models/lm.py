@@ -1,6 +1,6 @@
 """Decoder-only LM families: dense / GQA, MoE, the VLM stub (patch
-embeddings prepended to the token stream), ssm (Mamba-1) and hybrid (Hymba):
-init, the training loss, prefill and one decode step.
+embeddings prepended to the token stream), ssm (Mamba-1), hybrid (Hymba) and
+interleaved (Jamba): init, the training loss, prefill and one decode step.
 
 The port of the JAX package's ``models/lm.py``; the encoder-decoder family
 has its own module (``models/encdec.py``), as there.
@@ -36,6 +36,16 @@ over patches and tokens together, the cache counts the prefix, and the loss
 skips the patch positions.  The JAX package's unrolled decode step
 (``_decode_step_unrolled``) is a variant for XLA and is not ported.
 
+The interleaved family (``configs.InterleavedConfig``, the port's own) has
+layers of two kinds in one stack: attention without positions or a Mamba-1
+mixer with RMSNorms on dt, B and C, each followed by the SwiGLU MLP.  A layer carries only the leaves of its kind:
+the norms and the MLP are stacked on all L layers, ``layers.attn.*`` on the
+attention layers and ``layers.ssm.*`` on the Mamba layers, in layer order.
+Each block's forward is traced as ``block.attention`` or ``block.mamba``
+(``obs/trace.py``; a = the layer, b = the microbatch's tokens), again around
+its recompute in the backward.  It trains only: serving and the ``model``
+split raise.
+
 Params that carry a split plan (``distributed/tensor_parallel.py``: the
 sharded train step's view, ``tensor_parallel.local_view`` for serving)
 hold a model rank's block of each part that splits along ``model``:
@@ -66,12 +76,13 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import tensor_parallel as tp
 from repro_torch.models import layers as L
+from repro_torch.obs import trace as obs_trace
 
 __all__ = ["init_lm", "train_loss", "forward_hidden", "flat_params", "nested_params",
            "prefill", "decode_step", "init_cache", "CacheSpec", "check_supported",
            "padded_experts"]
 
-FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "interleaved")
 
 
 def _dtype(name: str) -> torch.dtype:
@@ -81,7 +92,8 @@ def _dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for a configuration this module does not run: a family other
     than ``FAMILIES`` (encdec has ``models/encdec.py``), or sinusoidal
-    positions (``rope_theta <= 0``), which no registered decoder-only
+    positions (``rope_theta <= 0`` outside the interleaved family, whose
+    attention takes no positions), which no registered decoder-only
     architecture uses."""
     if cfg.family == "encdec":
         raise NotImplementedError(
@@ -90,10 +102,17 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is none of the decoder-only "
             f"families {FAMILIES}")
-    if cfg.rope_theta <= 0:
+    if cfg.rope_theta <= 0 and cfg.family != "interleaved":
         raise NotImplementedError(
             "decoder-only models with sinusoidal positions (rope_theta <= 0) are "
             "not ported: no registered architecture uses them")
+
+
+def _refuse_serving(cfg: ModelConfig) -> None:
+    if cfg.family == "interleaved":
+        raise NotImplementedError(
+            f"the interleaved family ({cfg.name}) trains only: no cache holds its KV and "
+            f"SSM state side by side yet")
 
 
 def padded_experts(cfg: ModelConfig, multiple: int = 16) -> int:
@@ -130,28 +149,32 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
         x = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
         return (x * scale).to(dtype)
 
-    def stacked(shape, scale, dtype=pd):
-        out = torch.empty((n, *shape), dtype=dtype, device=device)
-        for i in range(0 if meta else n):
+    def stacked(shape, scale, dtype=pd, count=n):
+        out = torch.empty((count, *shape), dtype=dtype, device=device)
+        for i in range(0 if meta else count):
             out[i] = normal(shape, scale, dtype)
         return out
 
-    def full(shape, value, dtype=pd):
-        return torch.full((n, *shape), value, dtype=dtype, device=device)
+    def full(shape, value, dtype=pd, count=n):
+        return torch.full((count, *shape), value, dtype=dtype, device=device)
+
+    def attention(count=n):
+        return dict(
+            wq=stacked((d, h, hd), s_in, count=count),
+            wk=stacked((d, k, hd), s_in, count=count),
+            wv=stacked((d, k, hd), s_in, count=count),
+            wo=stacked((h, hd, d), 1.0 / math.sqrt(h * hd), count=count),
+        )
 
     s_in = 1.0 / math.sqrt(d)
     layers = {"ln1": full((d,), 0.0), "ln2": full((d,), 0.0)}
-    if cfg.family != "ssm":
-        layers.update(
-            wq=stacked((d, h, hd), s_in),
-            wk=stacked((d, k, hd), s_in),
-            wv=stacked((d, k, hd), s_in),
-            wo=stacked((h, hd, d), 1.0 / math.sqrt(h * hd)),
-        )
+    kinds = getattr(cfg, "layer_kinds", ())
+    if cfg.family not in ("ssm", "interleaved"):
+        layers.update(attention())
         if cfg.qkv_bias:
             layers.update(bq=full((h, hd), 0.0), bk=full((k, hd), 0.0),
                           bv=full((k, hd), 0.0))
-    if cfg.family in ("dense", "vlm", "hybrid"):
+    if cfg.family in ("dense", "vlm", "hybrid", "interleaved"):
         layers.update(
             wi_gate=stacked((d, f), s_in),
             wi_up=stacked((d, f), s_in),
@@ -172,21 +195,30 @@ def init_lm(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                 ws_up=stacked((d, fs), s_in),
                 ws_down=stacked((fs, d), 1.0 / math.sqrt(fs)),
             )
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "interleaved":
+        layers["attn"] = attention(kinds.count("attention"))
+    if cfg.family in ("ssm", "hybrid", "interleaved"):
         di, ns, r, ck = (cfg.ssm_d_inner, cfg.ssm_state, cfg.resolved_dt_rank,
                          cfg.ssm_conv)
+        m = kinds.count("mamba") if kinds else n
         a_log = torch.log(torch.arange(1, ns + 1, dtype=torch.float32, device=device))
         layers["ssm"] = {
-            "in_proj": stacked((d, 2 * di), s_in),
-            "conv_w": stacked((ck, di), 1.0 / math.sqrt(ck)),
-            "conv_b": full((di,), 0.0),
-            "x_proj": stacked((di, r + 2 * ns), 1.0 / math.sqrt(di)),
-            "dt_proj": stacked((r, di), 1.0 / math.sqrt(r)),
-            "dt_bias": full((di,), math.log(math.e - 1)),  # softplus^-1(1)
-            "a_log": a_log.expand(n, di, ns).contiguous(),
-            "d_skip": full((di,), 1.0, torch.float32),
-            "out_proj": stacked((di, d), 1.0 / math.sqrt(di)),
+            "in_proj": stacked((d, 2 * di), s_in, count=m),
+            "conv_w": stacked((ck, di), 1.0 / math.sqrt(ck), count=m),
+            "conv_b": full((di,), 0.0, count=m),
+            "x_proj": stacked((di, r + 2 * ns), 1.0 / math.sqrt(di), count=m),
         }
+        if cfg.family == "interleaved":
+            layers["ssm"].update(dt_norm=full((r,), 0.0, count=m),
+                                 b_norm=full((ns,), 0.0, count=m),
+                                 c_norm=full((ns,), 0.0, count=m))
+        layers["ssm"].update({
+            "dt_proj": stacked((r, di), 1.0 / math.sqrt(r), count=m),
+            "dt_bias": full((di,), math.log(math.e - 1), count=m),  # softplus^-1(1)
+            "a_log": a_log.expand(m, di, ns).contiguous(),
+            "d_skip": full((di,), 1.0, torch.float32, count=m),
+            "out_proj": stacked((di, d), 1.0 / math.sqrt(di), count=m),
+        })
         if cfg.family == "hybrid":
             layers["ln_ssm"] = full((d,), 0.0)
     params = {
@@ -224,8 +256,9 @@ def _qkv(x, lp, cfg: ModelConfig, positions, split=None):
         q = q + lp["bq"][None, :, None, :]
         k = k + lp["bk"][None, :, None, :]
         v = v + lp["bv"][None, :, None, :]
-    q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.family != "interleaved":
+        q = L.apply_rope(q, positions, cfg.rope_theta)
+        k = L.apply_rope(k, positions, cfg.rope_theta)
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
@@ -247,6 +280,19 @@ def _layer(tree, i: int) -> dict:
     """Layer ``i`` of the stacked leaves, nested dicts (``ssm``) included."""
     return {name: _layer(leaf, i) if isinstance(leaf, dict) else leaf[i]
             for name, leaf in tree.items()}
+
+
+def _interleaved_layer(tree, cfg: ModelConfig, i: int) -> dict:
+    """Layer ``i`` of the interleaved family: its norms and MLP, and its
+    kind's leaves from that kind's stack (attention's at the top level, as
+    ``_qkv`` reads them; Mamba's under ``ssm``)."""
+    kind, j = cfg.layer_slot(i)
+    lp = {name: leaf[i] for name, leaf in tree.items() if not isinstance(leaf, dict)}
+    if kind == "attention":
+        lp.update(_layer(tree["attn"], j))
+    else:
+        lp["ssm"] = _layer(tree["ssm"], j)
+    return lp
 
 
 def _mlp(x, lp, cfg: ModelConfig, norm_impl: str, decode: bool = False, plan=None):
@@ -294,7 +340,8 @@ def _embed(params, tokens, cfg: ModelConfig, patches):
 def _mamba(h, lp, cfg: ModelConfig, return_state: bool = True, plan=None, **kw):
     return L.mamba_block(h, lp["ssm"], dt_rank=cfg.resolved_dt_rank,
                          ssm_state=cfg.ssm_state, conv_k=cfg.ssm_conv,
-                         return_state=return_state, split=_part(plan, "mamba"), **kw)
+                         return_state=return_state, split=_part(plan, "mamba"),
+                         norm_eps=cfg.norm_eps, **kw)
 
 
 def _fuse(mix, ssm_o, lp, cfg: ModelConfig, norm_impl: str):
@@ -342,10 +389,13 @@ def _block_train(x, lp, cfg: ModelConfig, positions, attn_impl: str, ssm_impl: s
     """One block, full-sequence causal (``lm.py:_block_train`` of the JAX
     package).  Returns (x, the moe aux loss or None: the other families
     carry none).  The hybrid's fuse takes the attention and SSM outputs
-    each all-reduced where split: the norm of the SSM output is not linear."""
+    each all-reduced where split: the norm of the SSM output is not linear.
+    An interleaved layer runs the mixer of its kind (its leaves say which),
+    attention over the whole causal prefix."""
     h = L.rms_norm(x, lp["ln1"], cfg.norm_eps, impl=norm_impl)
-    if cfg.family == "ssm":
-        mix = _mamba(h, lp, cfg, return_state=False, plan=plan, impl=ssm_impl)
+    if cfg.family == "ssm" or (cfg.family == "interleaved" and "ssm" in lp):
+        mix = _mamba(h, lp, cfg, return_state=False, plan=plan, impl=ssm_impl,
+                     norm_impl=norm_impl)
     else:
         split = _part(plan, "attention")
         q, k, v = _qkv(h, lp, cfg, positions, split)
@@ -378,8 +428,20 @@ def forward_hidden(params, tokens, cfg: ModelConfig, *, attn_impl: str = "auto",
     layers, plan = params["layers"], tp.plan_of(params)
 
     def block(x, i):
-        return _block_train(x, _layer(layers, i), cfg, positions, attn_impl, ssm_impl,
-                            norm_impl, plan)
+        if cfg.family != "interleaved":
+            return _block_train(x, _layer(layers, i), cfg, positions, attn_impl, ssm_impl,
+                                norm_impl, plan)
+        # recorded in ``finally``: a recompute under remat stops early by
+        # raising once it has rebuilt what the backward needs
+        tr = obs_trace.get()
+        t = tr.t()
+        try:
+            return _block_train(x, _interleaved_layer(layers, cfg, i), cfg, positions,
+                                attn_impl, ssm_impl, norm_impl, plan)
+        finally:
+            kind = cfg.layer_slot(i)[0]
+            tr.rec(obs_trace.BLOCK_ATTENTION if kind == "attention" else obs_trace.BLOCK_MAMBA,
+                   t, a=i, b=x.shape[0] * x.shape[1])
 
     def run(x, aux, i):
         x, a = _remat(block, x, i) if cfg.remat else block(x, i)
@@ -495,6 +557,7 @@ class CacheSpec:
     def build(cfg: ModelConfig, seq_len: int, model_axis: int = 1) -> "CacheSpec":
         if cfg.family != "encdec":
             check_supported(cfg)
+            _refuse_serving(cfg)
         if cfg.family == "ssm":
             return CacheSpec(0, 0, False, False)
         k, h = cfg.num_kv_heads, cfg.num_heads
@@ -531,6 +594,7 @@ def init_cache(cfg: ModelConfig, spec: CacheSpec, batch: int, *, dtype=None,
     ``conv_k - 1`` conv inputs [L, B, conv_k-1, DI] in the compute dtype.
     With a split ``plan``, the rank's kv heads or its block of the slots
     (``tensor_parallel.cache_block``), and its DI channels."""
+    _refuse_serving(cfg)
     device = resolve_device(device)
     cd = dtype or _dtype(cfg.compute_dtype)
     cache = {"pos": 0}
@@ -608,6 +672,7 @@ def prefill(params, tokens, cfg: ModelConfig, spec: CacheSpec, *,
     hand-written kernel; 'auto': the kernel for CUDA inputs, the plain
     version for CPU inputs)."""
     check_supported(cfg)
+    _refuse_serving(cfg)
     cd = _dtype(cfg.compute_dtype)
     x = _embed(params, tokens, cfg, patches)
     b, s, _ = x.shape
@@ -651,6 +716,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig, spec: CacheSpec, *,
     cache holds a block of them) and the new SSM state into ``cache`` in
     place, advances ``cache['pos']`` and returns (f32 logits [B, V],
     cache).  The SSM branch runs the recurrent step, not the scan kernel."""
+    _refuse_serving(cfg)
     cd = _dtype(cfg.compute_dtype)
     pos = cache["pos"]
     if cfg.family != "ssm" and not spec.ring and pos >= spec.cache_len:

@@ -119,6 +119,8 @@ STEP_BACKWARD = kind_id("step.backward")        # its gradients
 STEP_ACCUMULATE = kind_id("step.accumulate")    # their adds into the accumulator
 STEP_OPTIMIZER = kind_id("step.optimizer")      # AdamW's update
 CONV_STEM_WGRAD = kind_id("conv.stem_wgrad")    # stem weight gradient; a=positions, b=taps
+BLOCK_ATTENTION = kind_id("block.attention")    # interleaved attention block; a=layer, b=tokens
+BLOCK_MAMBA = kind_id("block.mamba")            # interleaved Mamba block; a=layer, b=tokens
 
 _NULL_CTX = nullcontext()
 
